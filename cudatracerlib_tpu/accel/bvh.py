@@ -1,17 +1,17 @@
-"""CPU BVH construction producing flat TPU-friendly arrays.
+"""CPU BVH construction producing flat traversal arrays.
 
-TPU-native counterpart of the reference's SBVH builder + node layout
+Counterpart of the reference's SBVH builder + node layout
 (Engine/SpatialStructures/BVH/SplitBVHBuilder.cpp — SAH binned builder — and
 Engine/TriIntersectorData.h:42-60 — 4-wide-float node layout holding *both*
 child AABBs per inner node, Aila-Laine style).
 
-Design decisions for TPU:
-  * Build happens on host in numpy (the reference builds on CPU too); the
-    result is a pytree of flat arrays uploaded once per scene update.
+Design decisions:
+  * Build happens on host (the reference builds on CPU too); the result is a
+    pytree of flat arrays uploaded once per scene update.
   * Inner node = 16 floats: [c0.min, c0.max, c1.min, c1.max, c0_code, c1_code,
-    pad, pad]. One row gather per traversal step fetches both child boxes, so
-    the XLA/Pallas traversal can do distance-ordered descent with a single
-    memory access per step.
+    pad, pad]. One 64-byte row per traversal step fetches both child boxes,
+    so the XLA oracle and the CUDA kernel both do distance-ordered descent
+    with a single memory access per step.
   * Child codes (bitcast int32 in lanes 12/13): >= 0 -> inner node index;
     < 0 -> leaf with first-triangle index = -(code+1). Every leaf holds
     exactly LEAF_SIZE triangles: triangles are reordered into leaf order at
@@ -79,6 +79,34 @@ def _leaf_code(first: int) -> int:
     return -(first + 1)
 
 
+def tree_depth(nodes: np.ndarray, root: int) -> int:
+    """Inner nodes on the longest root-to-leaf path (0 for a leaf root)."""
+    codes = np.ascontiguousarray(nodes[:, 12:14]).view(np.int32)
+    level = np.asarray([root], np.int64)
+    level = level[level >= 0]
+    depth = 0
+    while level.size:
+        depth += 1
+        nxt = codes[level].reshape(-1)
+        level = nxt[nxt >= 0]
+    return depth
+
+
+def check_depth(nodes: np.ndarray, root: int) -> None:
+    """Refuse a tree whose traversal could overflow the per-ray stack.
+
+    A traversal stack holds at most one far child per inner ancestor of the
+    current node, so a tree of depth <= STACK_DEPTH never overflows it. The
+    SAH recursion stops at MAX_DEPTH, but oversized leaves become balanced
+    leaf subtrees below that, so the bound is checked on the built tree."""
+    from .traversal import STACK_DEPTH
+
+    depth = tree_depth(nodes, root)
+    if depth > STACK_DEPTH:
+        raise ValueError(f"BVH depth {depth} exceeds the traversal stack "
+                         f"({STACK_DEPTH} entries)")
+
+
 def build_bvh(vertices: np.ndarray, use_native: bool = True,
               with_host: bool = False):
     """Build a binned-SAH BVH over triangles given as (T, 3, 3) vertices.
@@ -98,6 +126,7 @@ def build_bvh(vertices: np.ndarray, use_native: bool = True,
         res = build_bvh_native(tris, LEAF_SIZE, N_BINS, MAX_DEPTH)
         if res is not None:
             node_arr, order, root = res
+            check_depth(node_arr, root)
             woop = woop_transform(
                 tris[np.clip(order, 0, T - 1), 0],
                 tris[np.clip(order, 0, T - 1), 1],
@@ -239,6 +268,7 @@ def build_bvh(vertices: np.ndarray, use_native: bool = True,
         nodes.append(row)
         root = 0
 
+    check_depth(np.stack(nodes), root)
     order = np.concatenate(order_out)
     woop = woop_transform(tris[order, 0], tris[order, 1], tris[order, 2])
     node_arr = np.stack(nodes).astype(np.float32)

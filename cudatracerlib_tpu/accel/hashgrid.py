@@ -1,12 +1,12 @@
 """Spatial hash grid as sorted cell-id arrays + segment queries.
 
-TPU-native counterpart of reference ``Engine/SpatialStructures/Grid/``
+Counterpart of reference ``Engine/SpatialStructures/Grid/``
 (HashGrid.h:28-62 position quantization, SpatialGridList.h:43-60 linked-list
 multimap built with device atomics). Design translation (SURVEY.md §7): the
 atomic linked lists become a *sort*: quantize points to cell ids, sort points
 by cell id, and store per-cell [start, end) ranges built with
 searchsorted — O(N log N) deterministic, no atomics, and range queries become
-contiguous slices, which is exactly what the TPU memory system wants.
+contiguous slices.
 
 Used by photon mapping (PPPM), VCM's photon exchange, and the path-space
 filtering buffer.

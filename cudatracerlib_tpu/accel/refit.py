@@ -4,7 +4,7 @@ Counterpart of reference ``Engine/SpatialStructures/BVH/BVHRebuilder.{h,cpp}``
 (refit AABBs after animation, BVHRebuilder.h:30-82) and the device Woop-data
 recompute in ``Engine/AnimatedMesh.cu``.
 
-TPU design: the tree topology is static after build; a host-side RefitPlan
+Design: the tree topology is static after build; a host-side RefitPlan
 groups nodes by depth, and the jitted refit walks levels bottom-up with dense
 gathers — O(depth) kernels, no pointer chasing. Woop matrices are recomputed
 on device with the closed-form inverse (det = |n|^2 for the [e1 e2 n v0]

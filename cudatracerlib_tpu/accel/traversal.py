@@ -1,17 +1,17 @@
 """Batched BVH traversal and ray-triangle intersection in pure XLA.
 
-TPU-native counterpart of the reference's Aila-Laine persistent-threads
-traversal kernel (Kernel/TraceHelper.cu:326-746). Design translation
-(SURVEY.md §7): instead of per-warp work stealing and per-thread stacks in
-registers, we run a *lockstep* `lax.while_loop` over a SoA ray batch where
-every lane keeps its own traversal stack in a (B, STACK_DEPTH) array. Each
-step gathers one 16-float "fat" node (both child AABBs — the same layout as
-the reference's 4-wide-float nodes, Engine/TriIntersectorData.h:42-60), does
-a distance-ordered descent, and intersects LEAF_SIZE Woop triangles when a
+Counterpart of the reference's Aila-Laine persistent-threads traversal
+kernel (Kernel/TraceHelper.cu:326-746). `intersect` runs a *lockstep*
+`lax.while_loop` over a SoA ray batch where every lane keeps its own
+traversal stack in a (B, STACK_DEPTH) array. Each step gathers one 16-float
+"fat" node (both child AABBs — the same layout as the reference's
+4-wide-float nodes, Engine/TriIntersectorData.h:42-60), does a
+distance-ordered descent, and intersects LEAF_SIZE Woop triangles when a
 lane sits on a leaf (Woop test math as Kernel/TraceHelper.cu:638-685).
 
-This module is also the autodiff-friendly oracle for the Pallas kernel in
-ops/: identical interfaces, identical results.
+It is the CPU intersector and the reference for the CUDA kernel in
+ops/bvh_trace.cu, which walks the same arrays one thread per ray;
+`intersect_auto` picks between them through backend.by_platform.
 """
 from __future__ import annotations
 
@@ -22,7 +22,10 @@ import jax.numpy as jnp
 
 from .bvh import BVH, LEAF_SIZE
 
-STACK_DEPTH = 48
+# Entries of the per-lane stack. It never overflows: a lane's stack holds at
+# most one far child per inner ancestor, and build_bvh refuses a tree deeper
+# than this (bvh.check_depth).
+STACK_DEPTH = 64
 DONE = jnp.int32(-(2**30))
 
 
@@ -135,7 +138,7 @@ def intersect(bvh: BVH, o, d, t_min=1e-4, t_max=jnp.inf, any_hit: bool = False,
 
         # push far child when both children hit: one masked scatter of B lanes
         # (a full-array where would rewrite the whole (B, STACK_DEPTH) stack
-        # every step — 48x the HBM traffic)
+        # every step — STACK_DEPTH x the memory traffic)
         push = is_inner & both
         sp_clamped = jnp.minimum(s.sp, STACK_DEPTH - 1)
         col = jnp.where(push, sp_clamped, STACK_DEPTH)  # OOB -> dropped
@@ -198,20 +201,13 @@ def intersect(bvh: BVH, o, d, t_min=1e-4, t_max=jnp.inf, any_hit: bool = False,
     return Hit(t=final.t_hit, prim=final.prim, bary=final.bary, valid=valid)
 
 
-    # Small scenes: dense intersection beats pointer-chasing on TPU (pure VPU
-    # math, zero gathers). This is the TPU-native specialization the CUDA
-    # reference has no analogue for. On TPU the dense path is a Pallas kernel
-    # (ops/intersect_pallas.py); on CPU an XLA einsum-style sweep.
-DENSE_MAX_TRIS = 4096
-
-
 @jax.custom_jvp
 def _refine_passthrough(woop, o, d, t, u, v, prim, valid):
     """Forward: the intersector's own (exact) t/u/v pass through untouched —
     no gather, no recompute. Only the tangent rule (below) pays for the
     closed-form Woop re-evaluation, so autodiff sees the hit as a function of
     (woop rows, o, d) while the forward render costs nothing extra. This is
-    what makes the Pallas kernels differentiable without a custom backward
+    what makes the CUDA kernel differentiable without a custom backward
     kernel (SURVEY.md §7 "differentiable hit refinement")."""
     return t, u, v
 
@@ -240,8 +236,8 @@ def refine_hit(bvh: BVH, o, d, hit: Hit) -> Hit:
     """Differentiable hit refinement: given the (detached) hit triangle id,
     gradients w.r.t. ray origin/direction and vertex positions flow through a
     closed-form Woop re-evaluation — while the forward values are the
-    intersector's own outputs, passed through at zero cost (the naive
-    recompute was a 1M-row gather costing ~10x the trace kernel itself)."""
+    intersector's own outputs, passed through at zero cost (a recompute
+    would gather every lane's Woop rows a second time)."""
     sg = jax.lax.stop_gradient
     t, u, v = _refine_passthrough(
         bvh.woop, o, d, sg(hit.t), sg(hit.bary[..., 0]), sg(hit.bary[..., 1]),
@@ -255,46 +251,45 @@ def refine_hit(bvh: BVH, o, d, hit: Hit) -> Hit:
     )
 
 
-def force_intersect_mode() -> str:
-    """CT_FORCE_INTERSECT env override: '' (auto), 'oracle' (XLA while-loop
-    BVH walk), 'dense' (Pallas all-triangles sweep), 'cluster' (Pallas
-    cluster-stream kernel). Used by the TPU fault bisection + smoke gate."""
-    import os
-
-    return os.environ.get("CT_FORCE_INTERSECT", "")
+# Padded-triangle count at or below which the CPU path tests all triangles
+# instead of traversing. The GPU always traverses: on an H100 the kernel
+# beat brute force on Cornell (60 tris) end to end (PERF.md).
+BRUTE_MAX_TRIS_CPU = 512
 
 
-def intersect_auto(bvh: BVH, o, d, t_min=1e-4, t_max=jnp.inf, any_hit: bool = False):
-    """Pick the fastest correct intersector for scene size + backend (static).
-
-    The raw intersector runs fully detached (Pallas kernels have no AD rule,
-    and differentiating a traversal would be wasted work anyway); all
+def _detached(raw_fn, bvh: BVH, o, d, t_min, t_max, any_hit: bool) -> Hit:
+    """The raw intersector runs fully detached (the CUDA kernel has no AD
+    rule, and differentiating a traversal would be wasted work anyway); all
     hit-value tangents flow through `refine_hit`'s custom_jvp instead."""
-    platform = jax.devices()[0].platform
     sg = jax.lax.stop_gradient
-    o_r, d_r, bvh_r = sg(o), sg(d), sg(bvh)
-    mode = force_intersect_mode()
-    if mode == "brute":
-        return intersect_brute_force(bvh_r, o_r, d_r, sg(t_min), sg(t_max))
-    if mode == "oracle":
-        raw = intersect(bvh_r, o_r, d_r, sg(t_min), sg(t_max), any_hit=any_hit)
-        return raw if any_hit else refine_hit(bvh, o, d, raw)
-    if (mode == "dense" or
-            (not mode and bvh.woop.shape[0] <= DENSE_MAX_TRIS
-             and platform not in ("cpu",))):
-        from ..ops.intersect_pallas import intersect_dense
-
-        raw = intersect_dense(bvh_r, o_r, d_r, sg(t_min),
-                              jnp.minimum(sg(t_max), 1e30), any_hit=any_hit)
-        if any_hit:  # occlusion queries only consume .valid — skip refinement
-            return raw
-        return refine_hit(bvh, o, d, raw)
-    if bvh.woop.shape[0] <= 512:
-        return intersect_brute_force(bvh, o, d, t_min, t_max)
-    raw = intersect(bvh_r, o_r, d_r, sg(t_min), sg(t_max), any_hit=any_hit)
-    if any_hit:
+    raw = raw_fn(sg(bvh), sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit)
+    if any_hit:  # occlusion queries only consume .valid — skip refinement
         return raw
     return refine_hit(bvh, o, d, raw)
+
+
+def _intersect_cpu(bvh: BVH, o, d, t_min, t_max, any_hit: bool) -> Hit:
+    if bvh.woop.shape[0] <= BRUTE_MAX_TRIS_CPU:
+        return intersect_brute_force(bvh, o, d, t_min, t_max)
+    return _detached(intersect, bvh, o, d, t_min, t_max, any_hit)
+
+
+def intersect_auto(bvh: BVH, o, d, t_min=1e-4, t_max=jnp.inf,
+                   any_hit: bool = False) -> Hit:
+    """Closest- or any-hit query through the intersector of the platform the
+    program is lowered for: the CUDA kernel on a GPU, the XLA oracle on the
+    CPU (brute force there for tiny scenes)."""
+    from .. import backend
+    from ..ops import bvh_trace
+
+    B = o.shape[0]
+    t_min = jnp.broadcast_to(jnp.asarray(t_min, jnp.float32), (B,))
+    t_max = jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (B,))
+    with jax.named_scope("intersect"):
+        return backend.by_platform(
+            gpu=lambda: _detached(bvh_trace.intersect_kernel, bvh, o, d,
+                                  t_min, t_max, any_hit),
+            cpu=lambda: _intersect_cpu(bvh, o, d, t_min, t_max, any_hit))
 
 
 def occluded(bvh: BVH, o, d, t_min=1e-4, t_max=jnp.inf):

@@ -7,7 +7,7 @@ normalize+colorize passes (FloatPixelDebugVisualizer.cu:9-32) and per-pixel
 geometric drawing via ``IDebugDrawer`` (DrawLine/DrawEllipse/DrawCone,
 PixelDebugVisualizer.h:15-67).
 
-TPU design translation: buffers are plain (H, W[, C]) arrays (any AOV dict
+Design translation: buffers are plain (H, W[, C]) arrays (any AOV dict
 entry qualifies); colorization/normalization are jnp image ops; the geometric
 overlay drawer is a host-side numpy line rasterizer projecting world-space
 segments through the scene camera — visualization tooling is not a hot path,
@@ -85,7 +85,7 @@ def overlay(base, aux, alpha: float = 0.5, mask=None):
 class DebugDrawer:
     """Rasterizes world-space debug geometry into an (H, W, 3) numpy image.
 
-    The TPU-native stand-in for the reference ``IDebugDrawer``: DrawEllipse /
+    The stand-in for the reference ``IDebugDrawer``: DrawEllipse /
     DrawEllipsoid / DrawCone are built from DrawLine exactly like the
     reference's default implementations (PixelDebugVisualizer.h:19-67).
     `project` maps world points -> film uv; build one with

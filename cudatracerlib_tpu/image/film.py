@@ -2,7 +2,7 @@
 
 Counterpart of reference ``Engine/Image.{h,cu}`` — the 3-stage film
 (PixelData{rgb, rgbSplat, weightSum} accumulated with atomics,
-Engine/Image.cu:22-66). On TPU the atomics become deterministic scatter-adds
+Engine/Image.cu:22-66). Here the atomics become deterministic scatter-adds
 (`.at[].add`), which XLA lowers to sorted segment sums — bitwise reproducible
 across replays, which the gradient tests rely on.
 """

@@ -5,7 +5,7 @@ Counterpart of reference ``Kernel/ImagePipeline/``:
     display (ImagePipeline.cu:14-52);
   * reconstruction filters Box/Gaussian/Mitchell/Lanczos/Triangle
     (SceneTypes/Filter.h:28-151) applied here as separable convolutions over
-    the accumulated film (TPU-friendly: dense convs instead of scatter-splats);
+    the accumulated film (dense convs instead of scatter-splats);
   * Reinhard global tone-mapping operator (PostProcess/ToneMapPostProcess.h:8-31);
   * non-local-means filter driven by per-pixel variance
     (Filter/NonLocalMeansFilter.h:13-50).
@@ -126,7 +126,7 @@ def gamma_correct(image, gamma: float = 2.2):
 def nlm_denoise(image, variance, strength: float = 0.5, patch: int = 3, window: int = 7):
     """Non-local-means weighted by per-pixel variance estimates
     (NonLocalMeansFilter.h:13-50). Dense window version — O(W^2) shifted adds,
-    which XLA fuses into a handful of kernels (TPU-friendly: no gather)."""
+    which XLA fuses into a handful of kernels (no gather)."""
     H, W, _ = image.shape
     pr = patch // 2
     wr = window // 2

@@ -5,7 +5,7 @@ luminance + half-buffer error metric, PixelVarianceBuffer.h:53-59) and the
 block samplers (``Kernel/BlockSampler/``): image split into blocks, per-block
 pass weights from λ·(avg estimator stddev) + (1-λ)·(block color variance)
 (VarianceBlockSampler.h:44-56) or half-buffer differences
-(DifferenceBlockSampler). On TPU the "blocks to render this pass" become a
+(DifferenceBlockSampler). Here the "blocks to render this pass" become a
 per-pixel *sample-count array* consumed by the wavefront generate stage —
 adaptive effort with static shapes.
 """

@@ -1,7 +1,7 @@
 """Direction <-> packed integer encodings for compact photon storage.
 
 Counterpart of reference ``Math/Compression.h:12-50`` (spherical uint16
-encoding used by photon maps and TriangleData). On TPU these live in uint32
+encoding used by photon maps and TriangleData). Here these live in uint32
 arrays; octahedral encoding is added as the higher-quality default.
 """
 from __future__ import annotations

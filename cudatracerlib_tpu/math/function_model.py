@@ -3,7 +3,7 @@
 Counterpart of reference ``Math/FunctionModel.h`` (239 LoC ``MergingModel``):
 an on-line piecewise-linear approximation of a 1-D function that keeps a fixed
 number of knots by merging the adjacent pair whose removal changes the curve
-least. TPU translation: the knot table is a fixed-size sorted SoA array; an
+least. Translation: the knot table is a fixed-size sorted SoA array; an
 insert is a masked shift, a merge collapses the cheapest pair — both are pure
 fixed-shape array ops usable under jit/vmap (e.g. one model per pixel/cell).
 """

@@ -54,7 +54,7 @@ def sample_discrete(cdf, u):
     idx = jnp.sum(below.astype(jnp.int32), axis=-1)
     # hi = cdf[idx], lo = cdf[idx-1] (0 if idx==0). The CDF is sorted, so both
     # are masked min/max reductions over the (broadcast) entries — pure vector
-    # ops; a take_along_axis gather on the minor axis costs ~100x more on TPU.
+    # ops instead of a take_along_axis gather on the minor axis.
     hi = jnp.min(jnp.where(below, jnp.inf, cdf_b), axis=-1)
     lo = jnp.max(jnp.where(below, cdf_b, 0.0), axis=-1)
     pmf = jnp.maximum(hi - lo, 0.0)

@@ -4,7 +4,7 @@ Counterpart of reference ``Math/Integrator.h:49-107`` (adaptive
 GaussLobattoIntegrator) and ``gaussLegendre``/``gaussLobatto`` node tables
 (``Math/Integrator.cu``).
 
-TPU design translation: the reference's recursive *adaptive* subdivision is
+Design translation: the reference's recursive *adaptive* subdivision is
 data-dependent control flow — hostile to XLA. Here quadrature is a fixed
 composite rule: `n_panels` sub-intervals, each integrated with a 7-point
 Gauss-Lobatto rule, fully vectorized over both panels and any batch axes of

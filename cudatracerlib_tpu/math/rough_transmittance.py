@@ -7,7 +7,7 @@ coupling of roughplastic/roughcoating. Round 4 quantified the cost of
 substituting the SMOOTH Fresnel transmittance: up to ~0.12 missing
 transmission at grazing incidence, alpha = 0.3 (tests/test_rough_transmittance).
 
-TPU-native design: per-lane table gathers cost ~10 cycles/element in the
+Design: per-lane table gathers cost ~10 cycles/element in the
 shading hot path, so instead of interpolating data files at runtime we
   1. quadrature-integrate the repo's OWN rough-dielectric sampler weight
      over a stratified u^2 grid (deterministic: the transmit branch of

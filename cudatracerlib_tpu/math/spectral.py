@@ -3,14 +3,13 @@ sampling, RGB <-> spectrum uplift.
 
 Counterpart of reference ``Math/Spectrum.h:10-15`` (TSpectrum<T,N> over the
 360-830 nm range) and the CIE machinery in ``Math/Spectrum.cu`` (the tables
-``SpectrumHelper::StaticInitialize`` loads, Engine/Core.cpp:18). TPU design
+``SpectrumHelper::StaticInitialize`` loads, Engine/Core.cpp:18). Design
 decisions:
 
 * the color-matching functions are the multi-lobe Gaussian fits of
   Wyman, Sloan & Shirley, "Simple Analytic Approximations to the CIE XYZ
   Color Matching Functions" (JCGT 2013) — closed-form, differentiable, and
-  accurate to ~1% of peak, instead of a 471-row table gather (XLA dynamic
-  gather moves ~1 element / 10 cycles on TPU; see BASELINE.md round 4);
+  accurate to ~1% of peak, instead of a 471-row table gather;
 * wavelength integration is HERO SAMPLING (Wilkie et al., "Hero Wavelength
   Spectral Sampling", EGSR 2014): each path draws one uniform hero
   wavelength plus N_WAVES-1 equally rotated companions, so a single traced
@@ -26,6 +25,7 @@ these conversions).
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,6 +33,7 @@ LAMBDA_MIN = 380.0   # nm — visible band (CIE fits are defined here)
 LAMBDA_MAX = 720.0
 LAMBDA_RANGE = LAMBDA_MAX - LAMBDA_MIN
 N_WAVES = 4          # spectral samples per path (hero + 3 rotations)
+_HIGHEST = jax.lax.Precision.HIGHEST  # f32 contractions: no TF32 on a GPU
 
 # 3-band box-basis edges for RGB uplift (nm): blue / green / red
 _BAND_EDGES = (LAMBDA_MIN, 490.0, 580.0, LAMBDA_MAX)
@@ -124,9 +125,11 @@ def rgb_to_spectrum(rgb, lam):
     emitters of any scale work (the basis is linear)."""
     w = jnp.min(rgb, axis=-1, keepdims=True)               # gray part
     res = rgb - w
-    coeffs = jnp.einsum("bc,...c->...b", _UPLIFT_M, res)   # (..., 3 bands)
+    coeffs = jnp.einsum("bc,...c->...b", _UPLIFT_M, res,
+                        precision=_HIGHEST)                # (..., 3 bands)
     resp = band_responses(lam)                             # (..., N, 3)
-    return w + jnp.einsum("...nb,...b->...n", resp, coeffs)
+    return w + jnp.einsum("...nb,...b->...n", resp, coeffs,
+                          precision=_HIGHEST)
 
 
 def spectral_to_rgb(L, lam, pdf):
@@ -136,4 +139,5 @@ def spectral_to_rgb(L, lam, pdf):
     normalized by int(ybar), balanced so flat spectra are exactly white."""
     cmf = cie_xyz(lam)                                    # (..., N, 3)
     xyz = jnp.mean(L[..., None] * cmf, axis=-2) / (pdf * _Y_INT)
-    return _BALANCE * jnp.einsum("cx,...x->...c", _XYZ2RGB, xyz)
+    return _BALANCE * jnp.einsum("cx,...x->...c", _XYZ2RGB, xyz,
+                                 precision=_HIGHEST)

@@ -1,11 +1,11 @@
 """Spectrum / color math over (..., 3) RGB arrays.
 
-TPU-native counterpart of reference ``Math/Spectrum.h`` (TSpectrum with
+Counterpart of reference ``Math/Spectrum.h`` (TSpectrum with
 SPECTRUM_SAMPLES=3, Math/Spectrum.h:10,326). We keep RGB (N=3) as the working
 representation; conversions (sRGB, XYZ, luminance) and the compressed RGBE /
 RGBCOL formats used by the reference's photon storage and film stages
 (Math/Spectrum.h:323-418) are provided as pure functions so photon buffers can
-use the same 32-bit packed encodings on TPU (uint32 arrays).
+use the same 32-bit packed encodings (uint32 arrays).
 """
 from __future__ import annotations
 

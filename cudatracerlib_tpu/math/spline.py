@@ -5,7 +5,7 @@ Counterpart of reference ``Math/Spline.h`` / ``Spline.cu`` (Mitsuba-derived
 ``sampleCubicInterp1D``). Uniform-grid variants only (the *N non-uniform
 variants in the reference are used nowhere in its integrators).
 
-TPU design: all functions are batched pure jnp — positions may have any batch
+Design: all functions are batched pure jnp — positions may have any batch
 shape; the value table is a fixed-size array, lookups are static-shape
 gathers, and importance sampling inverts the spline CDF with a fixed number
 of Newton iterations (data-independent control flow).

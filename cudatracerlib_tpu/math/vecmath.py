@@ -1,6 +1,6 @@
 """Vector math over trailing-dim-3 jnp arrays.
 
-TPU-native counterpart of the reference's ``Math/Vector.h`` / ``Math/MathFunc.h``
+Counterpart of the reference's ``Math/Vector.h`` / ``Math/MathFunc.h``
 (CudaTracerLib, see /root/reference/Math/Vector.h). Instead of a Vec3f class we
 use plain ``jnp.ndarray`` with shape ``(..., 3)`` so everything vmaps/shards and
 XLA fuses elementwise chains into single VPU loops.

@@ -2,7 +2,7 @@
 
 Counterpart of reference ``Kernel/ParametricModels/GaussianMixtureModel.h``
 (416 LoC: D-dimensional GMMs fitted with on-line/stepwise EM, qMatrix-based
-Cholesky sampling, per-grid-cell instances). TPU design translation: all cells
+Cholesky sampling, per-grid-cell instances). Design translation: all cells
 fit *in parallel* — the model state is a struct-of-arrays over (C cells,
 K components, D dims), the E-step is a batched responsibility computation, and
 the M-step is a segment-sum over samples binned to cells, blended with the
@@ -146,4 +146,5 @@ def gmm_sample(gmm: GMM, cell_id, u_select, u_gauss):
     cov = jnp.take_along_axis(
         gmm.cov[cell_id], k[..., None, None, None], axis=-3)[..., 0, :, :]
     chol = jnp.linalg.cholesky(cov)
-    return mu + jnp.einsum("...ij,...j->...i", chol, u_gauss)
+    return mu + jnp.einsum("...ij,...j->...i", chol, u_gauss,
+                           precision=jax.lax.Precision.HIGHEST)

@@ -3,7 +3,7 @@ instances (GMMs, histograms).
 
 Counterpart of reference ``Kernel/ParametricModels/GridModelBuffer.h``
 (192 LoC: a device buffer of per-cell models addressed by quantized
-position). TPU translation: the "buffer of models" IS the batched model
+position). Translation: the "buffer of models" IS the batched model
 state (models/gmm.py fits all cells in parallel); this module only supplies
 the position -> flat cell index map, mirroring accel/hashgrid.py cell logic.
 """

@@ -2,12 +2,18 @@
 
 The repo rule (SURVEY.md §7): components that are native in the reference stay
 native here — the SBVH builder is CPU C++ in CudaTracerLib
-(Engine/SpatialStructures/BVH/SplitBVHBuilder.cpp), so the TPU framework's
-builder is C++ too; JAX consumes the flat arrays it emits.
+(Engine/SpatialStructures/BVH/SplitBVHBuilder.cpp), so this builder is C++
+too; JAX consumes the flat arrays it emits.
+
+The library is compiled from the tracked source into `build/` at the
+repository root (git-ignored), under a name that carries a hash of the
+source, with portable flags: a build is never taken from another host or an
+older source.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -15,19 +21,23 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build")
 _LOCK = threading.Lock()
 _LIB = None
 
 
 def _build_lib() -> str:
     src = os.path.join(_DIR, "bvh_builder.cpp")
-    so = os.path.join(_DIR, "_native.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    so = os.path.join(_BUILD_DIR, f"libbvh_builder-{digest}.so")
+    if os.path.exists(so):
         return so
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           src, "-o", so + ".tmp"]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(so + ".tmp", so)
+    os.replace(tmp, so)
     return so
 
 

@@ -1,6 +1,6 @@
 // Native SBVH builder: binned object SAH + spatial splits.
 //
-// TPU-native framework's counterpart of the reference's CPU SBVH builder
+// The framework's counterpart of the reference's CPU SBVH builder
 // (Engine/SpatialStructures/BVH/SplitBVHBuilder.cpp — Stich et al. 2009,
 // "Spatial Splits in Bounding Volume Hierarchies"). Implements both split
 // kinds from the paper: binned object SAH over centroid bins, and spatial

@@ -2,23 +2,23 @@
 
 The reference is strictly single-GPU — no MPI/NCCL anywhere (SURVEY.md §2.8),
 so this module has no counterpart file; it is the new capability the rebuild's
-north star requires ("N-host scaling efficiency", BASELINE.md). The design
+north star requires ("N-host scaling efficiency", BASELINE.json). The design
 follows the standard JAX multi-process recipe:
 
   * every host runs the SAME program; `jax.distributed.initialize` wires the
-    processes into one global runtime (TPU pods auto-discover via the
-    environment, CPU/GPU get an explicit coordinator address);
-  * meshes are built over `jax.devices()` (all chips of all hosts),
-    process-major, so a ("dp","sp") mesh puts each host's chips contiguous on
-    the trailing mesh dim — collectives reduce over ICI within the host first
-    and only cross DCN for the final combine;
+    processes into one global runtime, given an explicit coordinator
+    address, process count and process id (nothing discovers them);
+  * meshes are built over `jax.devices()` (all devices of all hosts),
+    process-major, so a ("dp","sp") mesh puts each host's devices
+    contiguous on the trailing mesh dim — collectives reduce within the
+    host first and only cross hosts for the final combine;
   * the render/train shard_maps in parallel/shard.py are topology-agnostic:
     handed a multi-host mesh they run unchanged, with XLA lowering the film
-    `psum` / gradient all-reduce to hierarchical ICI+DCN collectives.
+    `psum` / gradient all-reduce to NCCL (GPU) or Gloo (CPU) collectives.
 
-On CPU (tests, CI, the driver) multi-process collectives use the Gloo backend
-over localhost sockets — the same code path as a real v4-16 pod minus the
-physical ICI, which is exactly what a scaling-efficiency *harness* needs to
+On CPU (tests, CI) multi-process collectives use the Gloo backend over
+localhost sockets — the multi-host code path minus the physical
+interconnect, which is what a scaling-efficiency *harness* needs to
 validate (bench_scaling.py measures it; tests/test_multihost.py asserts the
 numerics match single-process execution).
 """
@@ -39,9 +39,9 @@ def init_distributed(coordinator_address: str | None = None,
     """Idempotent multi-process bring-up.
 
     With no arguments, initializes only when the environment says we are part
-    of a multi-process job (TPU pod metadata or JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID), so single-process runs stay
-    single-process. Returns True iff jax.distributed is live afterwards.
+    of a multi-process job (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID), so single-process runs stay single-process. Returns
+    True iff jax.distributed is live afterwards.
 
     On CPU backends the Gloo collectives implementation is enabled first —
     without it, cross-process psum/all_gather would fail to compile.
@@ -57,9 +57,7 @@ def init_distributed(coordinator_address: str | None = None,
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
-    on_tpu_pod = bool(os.environ.get("TPU_WORKER_HOSTNAMES")
-                      or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
-    if coordinator_address is None and not on_tpu_pod:
+    if coordinator_address is None:
         return False  # single-process run
 
     try:
@@ -78,12 +76,13 @@ def init_distributed(coordinator_address: str | None = None,
 
 def host_mesh(n_sp: int = 1, devices: Sequence[jax.Device] | None = None
               ) -> Mesh:
-    """("dp", "sp") mesh over every chip of every host, host-contiguous.
+    """("dp", "sp") mesh over every device of every host, host-contiguous.
 
     `jax.devices()` enumerates process-major, so reshaping to
-    (n_total // n_sp, n_sp) keeps one host's chips adjacent along both mesh
-    axes: the `sp` (inner) axis never leaves a host when n_sp divides the
-    per-host chip count, and the `dp` reduce runs its ICI stage before DCN.
+    (n_total // n_sp, n_sp) keeps one host's devices adjacent along both
+    mesh axes: the `sp` (inner) axis never leaves a host when n_sp divides
+    the per-host device count, and the `dp` reduce runs its within-host
+    stage before it crosses hosts.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

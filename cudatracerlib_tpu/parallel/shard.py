@@ -1,17 +1,19 @@
-"""Multi-chip / multi-host parallel rendering and differentiable training.
+"""Multi-device / multi-host parallel rendering and differentiable training.
 
 The reference is single-GPU (SURVEY.md §2.8: no distributed backend anywhere);
 this module is the *new* capability BASELINE.json's north star requires:
 
   * rays/image-tiles sharded over a device mesh via `shard_map`
     (axes: `dp` = pixel blocks, `sp` = samples-per-pixel replicas);
-  * scene + BVH replicated in HBM on every chip;
+  * scene + BVH replicated in device memory on every device;
   * per-pass film reduction with `psum` over the mesh (counterpart of the
     reference's single-GPU Image::AddSample atomics, Engine/Image.cu:22-66);
-  * parameter gradients all-reduced over ICI by the same psum in the backward
-    pass (jax.grad of a psum-ed loss inserts the all-reduce automatically).
+  * parameter gradients all-reduced by the same psum in the backward pass
+    (jax.grad of a psum-ed loss inserts the all-reduce automatically).
 
-Everything works identically on a real TPU slice and on the
+The mesh follows the algorithm only: the GPUs of a host are joined all to
+all, so any (dp, sp) factorization of the device count is equally close.
+Everything works identically on GPUs and on the
 `--xla_force_host_platform_device_count` CPU mesh used in tests.
 """
 from __future__ import annotations
@@ -149,13 +151,13 @@ def make_train_step(mesh: Mesh, width: int, height: int, spp: int,
 
 def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
                      config=None):
-    """Multi-chip progressive photon mapping pass (BASELINE config 5: the
+    """Multi-device progressive photon mapping pass (BASELINE config 5: the
     light-tracing pass sharded over the mesh).
 
     Each device traces n_photons / n_dev photons with a device-folded seed;
-    the photon SoA is then `all_gather`ed over ICI so every chip holds the
-    union map (scene-sized, like the replicated BVH), the grid is built
-    redundantly per chip (cheap sort), and the eye pass shards over pixels
+    the photon SoA is then `all_gather`ed so every device holds the union
+    map (scene-sized, like the replicated BVH), the grid is built
+    redundantly per device (cheap sort), and the eye pass shards over pixels
     with the usual film psum. Returns fn(scene, seed, pass_idx) -> image."""
     from ..accel import hashgrid
     from ..render import ppm as ppm_mod
@@ -218,10 +220,8 @@ def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
 
         return run
 
-    # base-PTConfig specialization happens lazily per scene (round 5: the
-    # sharded path used to run with bsdf_types=None — every BSDF family
-    # evaluated on every lane, and the static photon-kernel dispatch in
-    # ppm_eye_pass could never fire)
+    # base-PTConfig specialization happens lazily per scene (with
+    # bsdf_types=None every BSDF family would be evaluated on every lane)
     cache: dict = {}
 
     def ppm_fn(scene: Scene, seed, radius):

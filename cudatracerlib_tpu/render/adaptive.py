@@ -1,6 +1,6 @@
 """Adaptive progressive rendering: variance-driven sample allocation.
 
-TPU-native counterpart of the reference block samplers actually *driving* the
+Counterpart of the reference block samplers actually *driving* the
 render (Kernel/BlockSampler/VarianceBlockSampler.h:44-56 ranks 128-px blocks
 and IBlockSampler_device.h:15-22 hands each CUDA block its pixel block).
 Under XLA the per-pass ray budget must stay a static shape, so "more passes

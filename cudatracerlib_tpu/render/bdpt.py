@@ -7,8 +7,8 @@ coverage matches BDPT.cu:88-94: s=0 camera-hits-light (gatherLight), s=1 NEE
 (connectToLight), t=1 light-to-camera splats (connectToCamera), and full
 (s>=2, t>=2) vertex-to-vertex connections.
 
-TPU design: light subpaths are traced first and stored as (S, B, ...) SoA
-arrays (a lax.scan stack — the TPU replacement for the reference's per-thread
+Design: light subpaths are traced first and stored as (S, B, ...) SoA
+arrays (a lax.scan stack — the replacement for the reference's per-thread
 vertex stack, VCMHelper.h:20-21); the eye walk then runs its own scan,
 connecting against all stored light vertices per bounce. All strategy
 contributions carry exact balance-heuristic MIS weights via the recursive
@@ -33,7 +33,6 @@ from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
 from ..scene import sensors
 from ..scene import scene as scene_mod
-from ..scene import shade_pack as sp_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from .path_tracer import PTConfig, _light_select_pmf, _offset_ray, _select_light, specialize_config
 
@@ -115,14 +114,11 @@ def _trace_light_subpath(scene: Scene, B: int, seed, cfg: PTConfig, s_max: int):
     init = _C(o=o, d=d, w=w, d_vcm=d_vcm, d_vc=d_vc,
               alive=jnp.ones((B,), bool), smp=smp)
 
-    pack = sp_mod.get_pack(scene)
-
     def step(c: _C, depth):
         n_rays = jnp.sum(c.alive.astype(jnp.float32))
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    cfg.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       cfg.tex_types)
         found = hit.valid & c.alive
 
         cos_in = jnp.maximum(jnp.abs(dot(it.frame.n, -c.d)), 1e-6)
@@ -177,7 +173,6 @@ def _bdpt_impl(scene: Scene, width: int, height: int, spp: int, seed,
     B = n_px * spp
 
     lverts, rays_total = _trace_light_subpath(scene, B, seed, cfg, config.s_max)
-    pack = sp_mod.get_pack(scene)
 
     # ---- t = 1: splat every light vertex to the camera ----
     splat_film = jnp.zeros((n_px, 3))
@@ -187,19 +182,10 @@ def _bdpt_impl(scene: Scene, width: int, height: int, spp: int, seed,
         uv, d_cam, dist_cam, _, in_frustum = sensors.sample_direct(cam, lv.p)
         g_hit = traversal.Hit(t=jnp.zeros((B,)), prim=lv.prim,
                               bary=jnp.full((B, 2), 1.0 / 3.0), valid=lv.valid)
-        if pack is not None:
-            from ..ops.shade_gather import packed_gather
-
-            rows_l = packed_gather(pack, jnp.maximum(lv.prim, 0))
-            it_l = sp_mod.pack_interaction(
-                rows_l, lv.p, -lv.wo, g_hit)._replace(p=lv.p)
-            mp_l = sp_mod.pack_mat_params(scene, rows_l, lv.uv,
-                                          cfg.tex_types)
-        else:
-            it_l = make_interaction(scene, lv.p, -lv.wo,
-                                    g_hit)._replace(p=lv.p)
-            mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
-                                     cfg.tex_types)
+        it_l = make_interaction(scene, lv.p, -lv.wo,
+                                g_hit)._replace(p=lv.p)
+        mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
+                                 cfg.tex_types)
         wo_local = it_l.frame.to_local(lv.wo)
         wi_local = it_l.frame.to_local(d_cam)
         f_cam, _ = bsdf_mod.eval_bsdf(mp_l, wo_local, wi_local, active=cfg.bsdf_types)
@@ -261,10 +247,9 @@ def _bdpt_impl(scene: Scene, width: int, height: int, spp: int, seed,
 
     def eye_step(c: _E, depth):
         n_rays = c.n_rays + jnp.sum(c.alive.astype(jnp.float32))
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    cfg.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       cfg.tex_types)
         found = hit.valid & c.alive
 
         cos_in = jnp.maximum(jnp.abs(dot(it.frame.n, -c.d)), 1e-6)
@@ -333,19 +318,10 @@ def _bdpt_impl(scene: Scene, width: int, height: int, spp: int, seed,
 
             g_hit = traversal.Hit(t=jnp.zeros((B,)), prim=lv.prim,
                                   bary=jnp.full((B, 2), 1.0 / 3.0), valid=lv.valid)
-            if pack is not None:
-                from ..ops.shade_gather import packed_gather
-
-                rows_l = packed_gather(pack, jnp.maximum(lv.prim, 0))
-                it_l = sp_mod.pack_interaction(
-                    rows_l, lv.p, -lv.wo, g_hit)._replace(p=lv.p)
-                mp_l = sp_mod.pack_mat_params(scene, rows_l, lv.uv,
-                                              cfg.tex_types)
-            else:
-                it_l = make_interaction(scene, lv.p, -lv.wo,
-                                        g_hit)._replace(p=lv.p)
-                mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
-                                         cfg.tex_types)
+            it_l = make_interaction(scene, lv.p, -lv.wo,
+                                    g_hit)._replace(p=lv.p)
+            mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
+                                     cfg.tex_types)
             wo_l_loc = it_l.frame.to_local(lv.wo)
             wi_l_loc = it_l.frame.to_local(-dir_c)
             f_lv, pdf_l_fwd = bsdf_mod.eval_bsdf(mp_l, wo_l_loc, wi_l_loc,

@@ -30,7 +30,6 @@ from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
 from ..scene import sensors
 from ..scene import scene as scene_mod
-from ..scene import shade_pack as sp_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from ..image import film as film_mod
 from .path_tracer import (PTConfig, _light_select_pmf, _offset_ray,
@@ -158,15 +157,12 @@ def trace_radiance_guided(scene: Scene, guiding: Guiding, o, d,
         prev_delta=jnp.ones((B,), bool),
     )
 
-    pack = sp_mod.get_pack(scene, config.flat_shading)
-
     def bounce(carry: _GCarry, depth):
         s = carry.sampler
-        hit = scene_mod.scene_intersect(scene, carry.o, carry.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, carry.o, carry.d, hit, pack,
-                                    config.tex_types,
-                                    flat=config.flat_shading)
+        hit = scene_mod.scene_intersect(scene, carry.o, carry.d)
+        it, mp = scene_mod.hit_shading(scene, carry.o, carry.d, hit,
+                                       config.tex_types,
+                                       flat=config.flat_shading)
         found = hit.valid & carry.active
         L = carry.L
 

@@ -22,7 +22,6 @@ from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
 from ..scene import sensors
 from ..scene import scene as scene_mod
-from ..scene import shade_pack as sp_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from .path_tracer import PTConfig, _offset_ray, _select_light, specialize_config
 
@@ -58,13 +57,10 @@ def _lt_impl(scene: Scene, width: int, height: int, n_paths: int, seed,
 
     init = _C(o=o, d=d, w=w, alive=jnp.ones((B,), bool), smp=smp)
 
-    pack = sp_mod.get_pack(scene)
-
     def bounce(c: _C, depth):
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    config.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       config.tex_types)
         found = hit.valid & c.alive
 
         # ---- connect to camera (splat) ----

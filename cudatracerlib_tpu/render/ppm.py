@@ -3,7 +3,7 @@
 Counterpart of reference ``Integrators/ProgressivePhotonMapping/``:
   * photon pass = generic particle process (Kernel/ParticleProcess.h:37):
     emitter ray sampling -> bounce walk -> store a photon at every surface
-    interaction (PPPMTracer_PhotonPass.cu:30-90). TPU translation: photons go
+    interaction (PPPMTracer_PhotonPass.cu:30-90). Translation: photons go
     to fixed (max_depth, N) SoA arrays (masked), then into a *sorted* hash
     grid (accel/hashgrid.py) instead of atomic linked lists;
   * eye pass = camera walk to the first diffuse vertex through specular
@@ -26,13 +26,12 @@ import jax.numpy as jnp
 from ..accel import hashgrid, traversal
 from ..image import film as film_mod
 from ..math import montecarlo as mc
-from ..math.vecmath import INV_PI, PI, dot
+from ..math.vecmath import PI, dot
 from ..sampling.rng import Sampler
 from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
 from ..scene import sensors
 from ..scene import scene as scene_mod
-from ..scene import shade_pack as sp_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from .path_tracer import PTConfig, _light_select_pmf, _offset_ray, _select_light, specialize_config
 
@@ -78,14 +77,11 @@ def trace_photons(scene: Scene, n_photons: int, seed, config: PTConfig,
     init = _C(o=o, d=d, w=w, alive=jnp.ones((B,), bool),
               spec_chain=jnp.ones((B,), bool), smp=smp)
 
-    pack = sp_mod.get_pack(scene)
-
     def bounce(c: _C, depth):
         n_rays = jnp.sum(c.alive.astype(jnp.float32))
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    config.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       config.tex_types)
         found = hit.valid & c.alive
 
         # deposit at non-delta surfaces; first-bounce (direct) photons are
@@ -183,27 +179,9 @@ def render_ppm_pass(scene: Scene, width: int, height: int, spp: int, seed,
                      radius, config)
 
 
-def ppm_uses_kernel(cfg: PTConfig) -> bool:
-    """Static: the photon-major MXU estimate applies when every possible
-    gather surface is DIFFUSE (f = albedo/pi factors out of the photon
-    sum) and we are on an accelerator backend (ops/photon_gather.py)."""
-    delta_types = {bsdf_mod.DIELECTRIC, bsdf_mod.THINDIELECTRIC,
-                   bsdf_mod.CONDUCTOR}
-    if cfg.bsdf_types is None:
-        return False
-    smooth_types = set(cfg.bsdf_types) - delta_types
-    return (smooth_types <= {bsdf_mod.DIFFUSE}
-            and jax.devices()[0].platform not in ("cpu",))
-
-
 def build_photon_grids(scene: Scene, pm: PhotonMap, config: PPMConfig):
     """(global grid, caustic grid | None): caustic photons get their own
-    grid + smaller radius when config.caustic_map (PPPMTracer.h:152).
-
-    The photon-major kernel path never queries these grids — returns
-    (None, None) there so two argsort-based grid builds are skipped."""
-    if ppm_uses_kernel(config.base):
-        return (None, None)
+    grid + smaller radius when config.caustic_map (PPPMTracer.h:152)."""
     lo = scene.bvh.world_min - 1e-3
     hi = scene.bvh.world_max + 1e-3
     if not config.caustic_map:
@@ -275,15 +253,12 @@ def ppm_eye_pass(scene: Scene, pm: PhotonMap, grids, pixel_id, sample_idx,
         gprim=jnp.zeros((B,), jnp.int32), smp=smp,
     )
 
-    pack = sp_mod.get_pack(scene)
-
     def eye_bounce(c: _E, depth):
         """Walk through specular surfaces to the first smooth vertex
         (PPPMTracer_EyePass camera walk, <=5 specular bounces)."""
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    cfg.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       cfg.tex_types)
         found = hit.valid & c.alive
 
         # emission pickup along the specular chain
@@ -353,39 +328,6 @@ def ppm_eye_pass(scene: Scene, pm: PhotonMap, grids, pixel_id, sample_idx,
                           0.0)
 
     # ---- photon density estimate (EntryEstimator.h:25-59) ----
-    # Fast path (round 5): when every possible gather surface is DIFFUSE
-    # (statically known from cfg.bsdf_types), f = albedo/pi factors out of
-    # the per-photon sum and the whole estimate runs photon-major through
-    # ops/photon_gather.py — one MXU sweep instead of (B, K) dynamic
-    # gathers (~60x measured; VERDICT r4 item 2).
-    use_kernel = ppm_uses_kernel(cfg)
-
-    def density_estimate_packed(sel_valid, r):
-        from ..ops import photon_gather as pg
-
-        lo = scene.bvh.world_min - 1e-3
-        hi = scene.bvh.world_max + 1e-3
-        tiles, aabbs = pg.build_photon_tiles(
-            pm.p, pm.power, pm.n, pm.valid & sel_valid, lo, hi,
-            config.grid_res, wi=pm.wi)
-        # cell-sort the queries: the kernel's per-block tile culling needs
-        # spatially compact query blocks
-        cid = hashgrid.cell_index(jnp.asarray(lo, jnp.float32),
-                                  config.grid_res
-                                  / jnp.maximum(jnp.asarray(hi - lo,
-                                                            jnp.float32),
-                                                1e-9),
-                                  config.grid_res, final.gp)
-        order = jnp.argsort(jnp.where(final.gathered, cid,
-                                      config.grid_res ** 3))
-        inv = jnp.argsort(order)
-        flux, _ = pg.photon_density_tpu(
-            tiles, aabbs, final.gp[order], final.gn[order],
-            final.gathered[order], r)
-        flux = flux[inv]
-        # f_raw = albedo/pi (diffuse); kernel norm 2/(pi r^2)
-        return mp_g.albedo * INV_PI * flux * (2.0 / (PI * r * r))
-
     def density_estimate(g, sel_valid, r):
         idx, valid_n = hashgrid.query_sphere(g, final.gp, r, config.max_gather)
         ph_p = pm.p[idx]
@@ -402,9 +344,12 @@ def ppm_eye_pass(scene: Scene, pm: PhotonMap, grids, pixel_id, sample_idx,
         wo_l = it_g.frame.to_local(final.gwo)[:, None, :]
         wi_l = jnp.stack(
             [
-                jnp.einsum("bkc,bc->bk", ph_wi, it_g.frame.s),
-                jnp.einsum("bkc,bc->bk", ph_wi, it_g.frame.t),
-                jnp.einsum("bkc,bc->bk", ph_wi, it_g.frame.n),
+                jnp.einsum("bkc,bc->bk", ph_wi, it_g.frame.s,
+                           precision=jax.lax.Precision.HIGHEST),
+                jnp.einsum("bkc,bc->bk", ph_wi, it_g.frame.t,
+                           precision=jax.lax.Precision.HIGHEST),
+                jnp.einsum("bkc,bc->bk", ph_wi, it_g.frame.n,
+                           precision=jax.lax.Precision.HIGHEST),
             ],
             axis=-1,
         )
@@ -422,22 +367,16 @@ def ppm_eye_pass(scene: Scene, pm: PhotonMap, grids, pixel_id, sample_idx,
             axis=1,
         )
 
-    if use_kernel:
-        if not config.caustic_map:
-            L = L + final.w * density_estimate_packed(pm.valid, radius)
+    with jax.named_scope("photon_density_estimate"):
+        if grid_caustic is None:
+            L = L + final.w * density_estimate(grid, pm.valid, radius)
         else:
-            L = L + final.w * density_estimate_packed(~pm.caustic, radius)
-            L = L + final.w * density_estimate_packed(
-                pm.caustic, radius * config.caustic_radius_scale)
-    elif grid_caustic is None:
-        L = L + final.w * density_estimate(grid, pm.valid, radius)
-    else:
-        L = L + final.w * density_estimate(grid, pm.valid & ~pm.caustic,
-                                           radius)
-        L = L + final.w * density_estimate(
-            grid_caustic, pm.valid & pm.caustic,
-            radius * config.caustic_radius_scale,
-        )
+            L = L + final.w * density_estimate(grid, pm.valid & ~pm.caustic,
+                                               radius)
+            L = L + final.w * density_estimate(
+                grid_caustic, pm.valid & pm.caustic,
+                radius * config.caustic_radius_scale,
+            )
 
     film = film_mod.Film.create(height, width)
     return film_mod.add_samples(film, pixel_id.astype(jnp.int32), L * w_cam)

@@ -5,7 +5,7 @@ modes (PrimTracer.h:7-9 PTDM list: linear_depth, D3D_depth, v_absdot_n_geo,
 v_dot_n_geo, v_dot_n_shade, n_geo_colored, n_shade_colored, uv, bary_coords,
 first_Le, first_f, first_f_direct, first_non_delta_Le, first_non_delta_f,
 first_non_delta_f_direct). One jitted function returns a dict of AOV images —
-the TPU-native analogue of the reference's per-mode kernels (all modes are
+the analogue of the reference's per-mode kernels (all modes are
 computed in one fused pass; XLA dead-code-eliminates unused outputs when the
 caller extracts a single channel under jit).
 """

@@ -6,7 +6,7 @@ Counterparts of reference ``Integrators/PseudoRealtime/``:
   * GameTracer (GameTracer.{h,cu}): primary hit + direct light + temporally
     reused path-space-filtered indirect irradiance;
   * PathSpaceFilteringBuffer (Kernel/PathSpaceFilteringBuffer.{h,cu}): a
-    hash-grid of shaded hit points blended over frames. TPU translation: the
+    hash-grid of shaded hit points blended over frames. Translation: the
     RGBE-compressed `path_entry` grid becomes the sort-based hash grid with a
     fixed-K gather and an exponential temporal blend carried as a pytree.
 """

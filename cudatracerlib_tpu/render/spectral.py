@@ -2,7 +2,7 @@
 
 Closes the reference's spectral capability (Math/Spectrum.h:10-15 generic-N
 TSpectrum over 360-830 nm; SceneTypes/Dispersion.h wavelength-dependent
-IOR) the TPU-native way:
+IOR) the array-program way:
 
 * each path carries N_WAVES spectral radiance samples at hero-rotated
   wavelengths (math/spectral.py; Wilkie et al. 2014) through the SAME
@@ -174,7 +174,7 @@ def trace_radiance_spectral(scene: Scene, o, d, lam, sampler: Sampler,
         tp = carry.throughput * uplift(bs.weight)
 
         # ---- hero-wavelength MIS through ROUGH dispersive refraction
-        # (Wilkie et al. 2014 §4; VERDICT r4 item 10): a glossy lobe has
+        # (Wilkie et al. 2014 §4): a glossy lobe has
         # nonzero pdf at every wavelength's eta along the sampled
         # direction, so companions SURVIVE with the one-sample MIS weight
         # f_lambda(wi) / mean_k pdf_k(wi) — only delta lobes still

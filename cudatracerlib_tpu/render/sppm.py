@@ -9,13 +9,13 @@ Counterpart of the reference's full PPPMTracer feature set
     N' = N + alpha*M, r'^2 = r^2 (N + alpha M)/(N + M), tau' = (tau+phi) r'^2/r^2;
   * kNN-style initial radii (PhotonMapHelper.h:23-41 density->radius): the
     first pass measures the local photon density and sets
-    r_px = r0 * sqrt(k_target / M_0), clamped — the TPU translation of the
+    r_px = r0 * sqrt(k_target / M_0), clamped — the translation of the
     reference's kNN radius scheme (radius scheme kNN vs Constant);
   * volumetric estimators (VolEstimators/PointStorage.h, BeamGrid.h):
     volume photons deposited at medium scatter events; the camera ray
     integrates in-scattered radiance either by fixed-step ray marching with a
     3-D kernel (PointStorage) or by a camera-beam x photon-point 2-D kernel
-    estimate (BeamGrid / "beam radiance estimate") — TPU design: both are
+    estimate (BeamGrid / "beam radiance estimate") — Design: both are
     fixed-shape hash-grid gathers, no linked lists, no atomics.
 
 Deposit convention: volume photons carry their power *after* the
@@ -41,7 +41,6 @@ from ..scene import media as media_mod
 from ..scene import phase as phase_mod
 from ..scene import sensors
 from ..scene import scene as scene_mod
-from ..scene import shade_pack as sp_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from .path_tracer import PTConfig, _offset_ray, _select_light, specialize_config
 from .ppm import PPM_ALPHA, PhotonMap
@@ -133,13 +132,11 @@ def trace_photons_vol(scene: Scene, media: media_mod.Media, n_photons: int,
         smp: Sampler
 
     init = _C(o=o, d=d, w=w, alive=jnp.ones((B,), bool), smp=smp)
-    pack = sp_mod.get_pack(scene)
 
     def bounce(c: _C, depth):
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    config.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       config.tex_types)
         t_surf = jnp.where(hit.valid, hit.t, 1e8)
 
         s = c.smp
@@ -296,9 +293,11 @@ def _beambeam_estimate(media: media_mod.Media, grid: hashgrid.HashGrid,
 
     # closest approach between camera line (o, d) and beam line (b_o, b_d)
     w0 = o[:, None, None, :] - b_o
-    b_dot = jnp.einsum("bc,bskc->bsk", d, b_d)
+    b_dot = jnp.einsum("bc,bskc->bsk", d, b_d,
+                       precision=jax.lax.Precision.HIGHEST)
     denom = 1.0 - b_dot * b_dot
-    d_w0 = jnp.einsum("bc,bskc->bsk", d, w0)
+    d_w0 = jnp.einsum("bc,bskc->bsk", d, w0,
+                      precision=jax.lax.Precision.HIGHEST)
     e_w0 = jnp.sum(b_d * w0, axis=-1)
     safe = denom > 1e-6
     inv = 1.0 / jnp.maximum(denom, 1e-6)
@@ -483,13 +482,11 @@ def _sppm_impl(scene: Scene, media: media_mod.Media, width: int, height: int,
     )
 
     has_media = config.vol_estimator != VOL_NONE
-    pack = sp_mod.get_pack(scene)
 
     def eye_bounce(c: _E, depth):
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    cfg.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       cfg.tex_types)
         found = hit.valid & c.alive
 
         # medium transmittance along this eye segment (reference eye pass
@@ -706,9 +703,12 @@ def _gather_parts(grid, pm: PhotonMap, frame, gp, gn, gwo, gathered, mp,
     wo_l = frame.to_local(gwo)[:, None, :]
     wi_l = jnp.stack(
         [
-            jnp.einsum("bkc,bc->bk", ph_wi, frame.s),
-            jnp.einsum("bkc,bc->bk", ph_wi, frame.t),
-            jnp.einsum("bkc,bc->bk", ph_wi, frame.n),
+            jnp.einsum("bkc,bc->bk", ph_wi, frame.s,
+                       precision=jax.lax.Precision.HIGHEST),
+            jnp.einsum("bkc,bc->bk", ph_wi, frame.t,
+                       precision=jax.lax.Precision.HIGHEST),
+            jnp.einsum("bkc,bc->bk", ph_wi, frame.n,
+                       precision=jax.lax.Precision.HIGHEST),
         ],
         axis=-1,
     )

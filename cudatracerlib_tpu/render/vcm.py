@@ -6,7 +6,7 @@ strategies) and *merged* against camera subpaths, with the full recursive MIS
 triple dVCM/dVC/dVM (VCMHelper.h:46-67; the Georgiev SmallVCM formulation the
 reference implements).
 
-TPU translation: the reference's per-pass photon hash grid
+Translation: the reference's per-pass photon hash grid
 (VCMSurfMap = SpatialGridList_Linked, VCM.h:18-20) becomes the sort-based
 grid of accel/hashgrid.py built fresh each pass from the light-vertex SoA
 stack; merging is a fixed-K neighbor gather (progressive radius per pass,
@@ -27,7 +27,6 @@ from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
 from ..scene import scene as scene_mod
 from ..scene import sensors
-from ..scene import shade_pack as sp_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from .bdpt import _camera_pdf_w
 from .path_tracer import (PTConfig, _light_select_pmf, _offset_ray,
@@ -94,13 +93,10 @@ def _light_walk(scene: Scene, B, seed, cfg: PTConfig, s_max, mis_vc, mis_vm):
 
     init = _C(o, d, w, d_vcm, d_vc, d_vm, jnp.ones((B,), bool), smp)
 
-    pack = sp_mod.get_pack(scene)
-
     def step(c: _C, depth):
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    cfg.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       cfg.tex_types)
         found = hit.valid & c.alive
 
         cos_in = jnp.maximum(jnp.abs(dot(it.frame.n, -c.d)), 1e-6)
@@ -151,7 +147,6 @@ def _light_walk(scene: Scene, B, seed, cfg: PTConfig, s_max, mis_vc, mis_vm):
 @partial(jax.jit, static_argnames=("width", "height", "spp", "config"))
 def _vcm_impl(scene: Scene, width: int, height: int, spp: int, seed, radius,
               config: VCMConfig):
-    pack = sp_mod.get_pack(scene)
     cfg = config.base
     n_px = width * height
     B = n_px * spp
@@ -180,19 +175,10 @@ def _vcm_impl(scene: Scene, width: int, height: int, spp: int, seed, radius,
 
         g_hit = _Hit(t=jnp.zeros((B,)), prim=lv.prim,
                      bary=jnp.full((B, 2), 1.0 / 3.0), valid=lv.valid)
-        if pack is not None:
-            from ..ops.shade_gather import packed_gather
-
-            rows_l = packed_gather(pack, jnp.maximum(lv.prim, 0))
-            it_l = sp_mod.pack_interaction(
-                rows_l, lv.p, -lv.wo, g_hit)._replace(p=lv.p)
-            mp_l = sp_mod.pack_mat_params(scene, rows_l, lv.uv,
-                                          cfg.tex_types)
-        else:
-            it_l = make_interaction(scene, lv.p, -lv.wo,
-                                    g_hit)._replace(p=lv.p)
-            mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
-                                     cfg.tex_types)
+        it_l = make_interaction(scene, lv.p, -lv.wo,
+                                g_hit)._replace(p=lv.p)
+        mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
+                                 cfg.tex_types)
         wo_loc = it_l.frame.to_local(lv.wo)
         wi_loc = it_l.frame.to_local(d_cam)
         f_cam, _ = bsdf_mod.eval_bsdf(mp_l, wo_loc, wi_loc, active=cfg.bsdf_types)
@@ -241,12 +227,10 @@ def _vcm_impl(scene: Scene, width: int, height: int, spp: int, seed, radius,
               B / jnp.maximum(cam_pdf_w0, 1e-9), jnp.zeros((B,)), jnp.zeros((B,)),
               jnp.ones((B,), bool), smp)
 
-
     def eye_step(c: _E, depth):
-        hit = scene_mod.scene_intersect(scene, c.o, c.d,
-                                        refine=pack is None)
-        it, mp = sp_mod.hit_shading(scene, c.o, c.d, hit, pack,
-                                    cfg.tex_types)
+        hit = scene_mod.scene_intersect(scene, c.o, c.d)
+        it, mp = scene_mod.hit_shading(scene, c.o, c.d, hit,
+                                       cfg.tex_types)
         found = hit.valid & c.alive
 
         cos_in = jnp.maximum(jnp.abs(dot(it.frame.n, -c.d)), 1e-6)
@@ -319,19 +303,10 @@ def _vcm_impl(scene: Scene, width: int, height: int, spp: int, seed, radius,
                 t=jnp.zeros((B,)), prim=lv.prim,
                 bary=jnp.full((B, 2), 1.0 / 3.0), valid=lv.valid,
             )
-            if pack is not None:
-                from ..ops.shade_gather import packed_gather
-
-                rows_l = packed_gather(pack, jnp.maximum(lv.prim, 0))
-                it_l = sp_mod.pack_interaction(
-                    rows_l, lv.p, -lv.wo, g_hit)._replace(p=lv.p)
-                mp_l = sp_mod.pack_mat_params(scene, rows_l, lv.uv,
-                                              cfg.tex_types)
-            else:
-                it_l = make_interaction(scene, lv.p, -lv.wo,
-                                        g_hit)._replace(p=lv.p)
-                mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
-                                         cfg.tex_types)
+            it_l = make_interaction(scene, lv.p, -lv.wo,
+                                    g_hit)._replace(p=lv.p)
+            mp_l = gather_mat_params(scene, it_l._replace(uv=lv.uv),
+                                     cfg.tex_types)
             wo_l_loc = it_l.frame.to_local(lv.wo)
             wi_l_loc = it_l.frame.to_local(-dir_c)
             f_lv, pdf_l_fwd = bsdf_mod.eval_bsdf(mp_l, wo_l_loc, wi_l_loc,
@@ -365,9 +340,12 @@ def _vcm_impl(scene: Scene, width: int, height: int, spp: int, seed, radius,
             & (jnp.sum(ph.n * it.frame.n[:, None, :], -1) > 0.5)
         )
         wi_ph = jnp.stack([
-            jnp.einsum("bkc,bc->bk", ph.wo, it.frame.s),
-            jnp.einsum("bkc,bc->bk", ph.wo, it.frame.t),
-            jnp.einsum("bkc,bc->bk", ph.wo, it.frame.n),
+            jnp.einsum("bkc,bc->bk", ph.wo, it.frame.s,
+                       precision=jax.lax.Precision.HIGHEST),
+            jnp.einsum("bkc,bc->bk", ph.wo, it.frame.t,
+                       precision=jax.lax.Precision.HIGHEST),
+            jnp.einsum("bkc,bc->bk", ph.wo, it.frame.n,
+                       precision=jax.lax.Precision.HIGHEST),
         ], axis=-1)
         mp_b = jax.tree.map(lambda a: a[:, None] if a.ndim == 1 else a[:, None, :], mp)
         wo_b = jnp.broadcast_to(wo_local[:, None, :], wi_ph.shape)

@@ -28,12 +28,6 @@ from ..scene import scene as scene_mod
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from .path_tracer import PTConfig, _light_select_pmf, _offset_ray, _select_light
 
-import os as _os
-
-# Fault-workaround knob, read ONCE at import (jit-traced; process-restart
-# semantics — see media.py _TRACK_SCAN note).
-_UNROLL_BOUNCES = int(_os.environ.get("CT_UNROLL_BOUNCES", "1"))
-
 
 class _VCarry(NamedTuple):
     o: jnp.ndarray
@@ -201,10 +195,7 @@ def trace_radiance_vol(scene: Scene, media: media_mod.Media, o, d,
         return vol_bounce(scene, media, config, carry, depth), None
 
     body = jax.checkpoint(bounce, prevent_cse=False) if config.remat else bounce
-    # CT_UNROLL_BOUNCES: unroll the bounce loop (round-4 TPU fault
-    # workaround knob — see media.py CT_TRACK_SCAN note; import-once)
-    final, _ = jax.lax.scan(body, init, jnp.arange(config.max_depth),
-                            unroll=max(1, _UNROLL_BOUNCES))
+    final, _ = jax.lax.scan(body, init, jnp.arange(config.max_depth))
     if with_stats:
         return final.L, final.sampler, final.n_rays
     return final.L, final.sampler
@@ -302,14 +293,10 @@ def render_vol_stepwise(scene: Scene, media: media_mod.Media, width: int,
                         with_stats: bool = False):
     """Host-stepped volumetric renderer: ONE jit dispatch per bounce.
 
-    Round-4 workaround of record for an XLA:TPU fault: the fused volpath
-    program (grid media + bounce scan) crashes the TPU worker whenever >= 4
-    bounces compile into one program — with the Pallas kernel, the XLA oracle
-    traversal, or even a brute-force intersector; looped or fully unrolled —
-    while the identical per-bounce programs dispatched separately run
-    cleanly (see .scratch/vol_bisect.py). Numerics match render_vol*
-    bitwise on CPU (same bounce body, same sampler stream); only the
-    dispatch granularity differs. ~6 dispatches/pass of host overhead.
+    Numerics match render_vol* bitwise on CPU (same bounce body, same
+    sampler stream); only the dispatch granularity differs: one small
+    program per bounce instead of one fused program, at ~6 dispatches per
+    pass of host overhead.
     """
     config = specialize_media_config(media, config)
     acc = jnp.zeros((height, width, 3), jnp.float32)

@@ -1,6 +1,6 @@
 """Wavefront path tracer: persistent ray pool with refill-on-death.
 
-TPU-native counterpart of the reference WavefrontPathTracer
+Counterpart of the reference WavefrontPathTracer
 (Integrators/PseudoRealtime/WavefrontPathTracer.{h,cu}) + DoubleRayBuffer
 (Kernel/DoubleRayBuffer.h). Design translation (SURVEY.md §7):
 
@@ -88,15 +88,10 @@ def _camera_ray(scene: Scene, ray_id, seed, width, height, spp,
 def _wavefront_impl(scene: Scene, width: int, height: int, spp: int, seed,
                     config: PTConfig, capacity: int,
                     with_stats: bool = False, pixel_map=None):
-    from ..scene import shade_pack as sp_mod
-
     C = capacity
     total = width * height * spp
     n_px = width * height
     cone = sensors.pixel_spread(scene.camera, width, height)
-    # fused shade path: packed table built ONCE, outside the pool loop
-    pack = (sp_mod.build_shade_pack(scene)
-            if sp_mod.pack_enabled(scene, config.flat_shading) else None)
 
     empty_pool = _Pool(
         o=jnp.zeros((C, 3)), d=jnp.broadcast_to(jnp.asarray([0.0, 0.0, 1.0]), (C, 3)),
@@ -166,7 +161,7 @@ def _wavefront_impl(scene: Scene, width: int, height: int, spp: int, seed,
             throughput=p.throughput, prev_pdf=p.prev_pdf,
             prev_delta=p.prev_delta, eta_scale=p.eta_scale,
             path_len=p.path_len, sampler=Sampler(state=p.state),
-            depth=p.depth, cone=cone, pack=pack,
+            depth=p.depth, cone=cone,
         )
         cont = out.cont & (p.depth + 1 < config.max_depth)
         L = p.L + out.L_add

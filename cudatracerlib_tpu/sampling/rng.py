@@ -1,6 +1,6 @@
 """Counter-based stateless RNG for Monte-Carlo sampling.
 
-TPU-native replacement for the reference's curand / sequence samplers
+Replacement for the reference's curand / sequence samplers
 (Base/CudaRandom.h, Kernel/Sampler_device.h:120-169). Instead of mutable
 per-pixel RNG state we derive every sample from a hash of
 (seed, pixel_id, sample_index, dimension) — stateless, replay-stable across

@@ -5,7 +5,7 @@ the host sequence generators (IndependentSequenceGenerator,
 StratifiedSequenceGenerator, Sampler.h:63-118; the enum also names
 low-discrepancy/Sobol which the reference never wired — here they are wired).
 
-TPU design: sequences are either counter-hashed on the fly (independent — the
+Design: sequences are either counter-hashed on the fly (independent — the
 default fast path in sampling/rng.py) or generated as precomputed
 low-discrepancy tables combined per-pixel with Cranley-Patterson rotations
 (the stateless analogue of the reference's SequenceSamplerData index-decompose

@@ -2,7 +2,7 @@
 
 Counterpart of reference ``Engine/AnimatedMesh.{h,cpp,cu}`` (MD5 skeletal
 animation: <=8 bone weights per vertex AnimatedMesh.h:10-20, per-frame matrix
-palettes, GPU skinning kernel k_ComputeState + BVH refit). TPU design: the
+palettes, GPU skinning kernel k_ComputeState + BVH refit). Design: the
 skinning is one jitted einsum over the bone palette; Woop data + BVH boxes
 refit on-device (accel/refit.py), so animation never leaves the chip and is
 differentiable w.r.t. bone transforms (novel vs the reference).
@@ -49,12 +49,14 @@ def skin_vertices(mesh: SkinnedMesh, pose: jnp.ndarray) -> jnp.ndarray:
     """Linear-blend skinning: pose (n_bones, 4, 4) world transforms.
 
     Returns deformed (T, 3, 3) vertices (the reference's k_ComputeState)."""
-    palette = jnp.einsum("bij,bjk->bik", pose, mesh.inv_bind)  # (B, 4, 4)
+    palette = jnp.einsum("bij,bjk->bik", pose, mesh.inv_bind,
+                         precision=jax.lax.Precision.HIGHEST)  # (B, 4, 4)
     M = palette[mesh.bone_ids]                # (T, 3, W, 4, 4)
     rest_h = jnp.concatenate(
         [mesh.rest, jnp.ones(mesh.rest.shape[:-1] + (1,))], axis=-1
     )                                          # (T, 3, 4)
-    moved = jnp.einsum("tcwij,tcj->tcwi", M, rest_h)[..., :3]
+    moved = jnp.einsum("tcwij,tcj->tcwi", M, rest_h,
+                       precision=jax.lax.Precision.HIGHEST)[..., :3]
     return jnp.sum(moved * mesh.weights[..., None], axis=2)
 
 

@@ -6,12 +6,13 @@ UpdateScene flushes dirty ranges + rebuilds the scene BVH,
 DynamicScene.cpp:480-556) and the instance `Node` concept
 (SceneTypes/Node.h:13).
 
-TPU design: mutation happens host-side on numpy staging arrays; `update()` is
+Design: mutation happens host-side on numpy staging arrays; `update()` is
 the single host->device boundary — it rebuilds the BVH (native C++ builder),
-re-derives clusters/light CDF and emits a fresh immutable Scene pytree (the
+re-derives the light CDF and emits a fresh immutable Scene pytree (the
 KernelDynamicScene analogue). Instances are flattened at update time
-(transform baked into vertices): replication costs memory but keeps traversal
-single-level — the TPU-side TLAS is the cluster decomposition itself.
+(transform baked into vertices) unless the scene asks for the two-level
+path (scene/instances.py): replication costs memory but keeps traversal
+single-level.
 """
 from __future__ import annotations
 
@@ -176,11 +177,10 @@ class DynamicScene:
         import jax.numpy as jnp
 
         from ..accel.bvh import build_bvh
-        from ..accel.clusters import build_clusters
         from ._hostcache import register_specialization
         from .instances import build_instance_groups
         from .lights import build_lights, light_power
-        from .scene import CLUSTER_MIN_TRIS, ShadingData
+        from .scene import ShadingData
         from .instances import BlasEntry
 
         if not hasattr(self, "_blas_cache"):
@@ -203,10 +203,6 @@ class DynamicScene:
             if cached is None:
                 v = mesh.vertices
                 bvh, host = build_bvh(v, with_host=True)
-                clusters = None
-                if v.shape[0] >= CLUSTER_MIN_TRIS:
-                    clusters, _ = build_clusters(bvh, host=host,
-                                                 with_host=True)
                 order = host["order"]
                 v_ord = v[order]
                 n = mesh.normals
@@ -229,12 +225,11 @@ class DynamicScene:
                              v_ord[:, 2] - v_ord[:, 0]), axis=-1)
                 uvd = np.sqrt(uv_area / np.maximum(w_area, 1e-20)
                               ).astype(np.float32)
-                cached = dict(bvh=bvh, clusters=clusters, verts=v_ord,
+                cached = dict(bvh=bvh, verts=v_ord,
                               normals=n_ord, uvs=uv_ord, n_face=nf,
                               uv_density=uvd)
                 self._blas_cache[mesh_id] = cached
-            blas_entries.append(BlasEntry(bvh=cached["bvh"],
-                                          clusters=cached["clusters"]))
+            blas_entries.append(BlasEntry(bvh=cached["bvh"]))
             shading_parts.append(cached)
             prim_bases.append(base)
             base += cached["verts"].shape[0]
@@ -336,7 +331,6 @@ class DynamicScene:
             light_cdf=cdf,
             camera=self._camera,
             env_light_id=jnp.asarray(np.int32(env_id)),
-            clusters=None,
             blas=tuple(blas_entries),
             instances=groups,
         )

@@ -5,7 +5,7 @@ area light over ShapeSet:96, DistantLight:145, SpotLight:226, InfiniteLight
 env map:294-369) and the scene-level power-CDF light selection
 (Engine/KernelDynamicScene.cu:25-46).
 
-TPU design: one flat SoA table for all lights; area lights reference a global
+Design: one flat SoA table for all lights; area lights reference a global
 pool of emissive triangles with a padded per-light CDF (static shapes). The
 environment light importance-samples a 2-D luminance CDF over an equirect map.
 All emission quantities are differentiable (the BASELINE "light gradients"
@@ -63,8 +63,8 @@ class Lights(NamedTuple):
     # environment
     env_map: jnp.ndarray      # (H, W, 3) equirect radiance (H=1 dummy if unused)
     # precomputed env importance tables (build_lights; detached sampling
-    # densities — recomputing them per sample cost a (B, W) row gather +
-    # per-lane cumsum every bounce, ~0.3 s/bounce at 1M lanes on TPU)
+    # densities — recomputing them per sample costs a (B, W) row gather +
+    # per-lane cumsum every bounce)
     env_w: jnp.ndarray        # (H, W) luminance * sin(theta) weights
     env_row_cdf: jnp.ndarray  # (H,) marginal row CDF
     env_col_cdf: jnp.ndarray  # (H, W) per-row conditional CDFs
@@ -79,8 +79,8 @@ class Lights(NamedTuple):
 
 
 def _small_gather(table, idx):
-    """Row gather specialized for tiny tables: a select chain avoids TPU
-    dynamic-gather overhead when the table has <= 8 rows (typical area-light
+    """Row gather specialized for tiny tables: a select chain instead of a
+    dynamic gather when the table has <= 8 rows (typical area-light
     triangle pools)."""
     n = table.shape[0]
     if n == 1:
@@ -368,8 +368,7 @@ def pdf_env_dir(lights: Lights, lid, d):
 
 
 def _env_fetch_rgb(env_map, y, x):
-    """env_map[y, x] as 3 per-channel flat takes (a fancy-index (B, 3)
-    gather pads the 3-wide minor dim to a 128-lane tile on TPU)."""
+    """env_map[y, x] as 3 per-channel flat takes."""
     H, W = env_map.shape[0], env_map.shape[1]
     flat = env_map.reshape(H * W, 3)
     idx = y * W + x
@@ -382,10 +381,9 @@ def _sample_env(lights: Lights, lid, u2):
 
     Uses the build-time tables (env_row_cdf / env_col_cdf / env_w): the row
     CDF is shared (one searchsorted), the conditional column CDF row is
-    materialized per lane by a one-hot MXU contraction, and the column index
-    plus its pmf come from (B, W) element-wise comparisons — no per-lane row
-    gather, no per-lane cumsum (round-4 profile: those were ~0.3 s/bounce
-    of the glossy config's shading time at 1M lanes)."""
+    materialized per lane by a one-hot contraction at HIGHEST precision, and
+    the column index plus its pmf come from (B, W) element-wise comparisons
+    — no per-lane row gather, no per-lane cumsum."""
     H, W = lights.env_w.shape[0], lights.env_w.shape[1]
     y, pmf_row, uy = mc.sample_discrete(lights.env_row_cdf, u2[..., 1])
     oh_y = jax.nn.one_hot(y, H, dtype=jnp.float32)          # (B, H)

@@ -6,7 +6,7 @@ Counterpart of reference ``SceneTypes/Volumes.h:289`` (HomogeneousVolumeDensity
 sigma_a/sigma_s/Le lookups, transmittance `tau`, volume emission `Lve`, and
 distance sampling.
 
-TPU design: one SoA table of <=16 volumes; grid data lives in a single flat
+Design: one SoA table of <=16 volumes; grid data lives in a single flat
 f32 buffer with per-volume (offset, resolution, channel-count) records, so
 every volume keeps its LOAD-TIME resolution (no resampling) and each of
 sigma_a / sigma_s / Le can carry its own scalar or RGB grid — the reference's
@@ -26,13 +26,6 @@ import numpy as np
 from ..math.vecmath import dot, safe_sqrt
 from ..sampling.rng import Sampler
 from ._hostcache import get_host as _get_host, register_host as _register_host
-
-import os as _os
-
-# Fault-workaround knob, read ONCE at import (it parameterizes jit-traced
-# code; per-call reads would silently reuse the first compile — changing it
-# requires a process restart; round-4 advisor note).
-_TRACK_SCAN = int(_os.environ.get("CT_TRACK_SCAN", "0"))
 
 HOMOGENEOUS = 0
 GRID = 1
@@ -216,11 +209,8 @@ def _grid_lookup(media: Media, vid, p, off, nch):
     flat = media.grid_data
 
     def corner(ax, ay, az):
-        # per-channel (B,) flat gathers: a single (B, 3) gather pads the
-        # 3-wide minor dim to a 128-lane tile on TPU (~10-40x slower; the
-        # round-4 profile measured 17 s/bounce on the volume bench from
-        # exactly this). Scalar grids (cstride == 0) still issue 3 gathers,
-        # but each rides the fast vectorized-take path.
+        # per-channel (B,) flat gathers. Scalar grids (cstride == 0) still
+        # issue 3 gathers, each a plain vectorized take.
         sp = (ax * ry + ay) * rz + az
         return jnp.stack(
             [jnp.take(flat, base + cstride * c + sp) for c in range(3)],
@@ -264,9 +254,8 @@ def _inside(media: Media, vid, p):
 #   * "density" grids (one shared scalar grid for sigma_a and sigma_s — the
 #     reference VolumeGrid single-grid mode): ONE 8-gather scalar trilinear
 #     lookup per point instead of 2 fields x 3 channels x 8 corners.
-# The round-4 TPU profile measured 14 s/bounce on the volume bench, almost
-# all of it these gathers (delta-tracking iterations + 32-step tau
-# quadrature are both per-point-lookup bound).
+# Delta-tracking iterations and the 32-step tau quadrature are both
+# per-point-lookup bound, so these lookups are the volume path's hot spot.
 # ---------------------------------------------------------------------------
 
 
@@ -283,7 +272,7 @@ def media_static(media: Media):
 def static_modes(media: Media):
     """Hashable per-volume mode tuple for static specialization, or None.
 
-    Entry: (kind, off, le_off, (rx, ry, rz)) with kind in
+    Entry: (kind, off, le_off) with kind in
       'const'  — homogeneous or constant-field volume (zero gathers)
       'scalar' — one shared scalar grid drives sigma_a AND sigma_s at `off`
       'gen'    — distinct / RGB grids (generic gather path)
@@ -297,15 +286,14 @@ def static_modes(media: Media):
     out = []
     for v in range(media.count):
         le_off = int(info["off_le"][v])
-        res3 = tuple(int(x) for x in info["res"][v])
         if info["vtype"][v] != GRID or (
                 info["off_a"][v] < 0 and info["off_s"][v] < 0):
-            out.append(("const", -1, le_off, res3))
+            out.append(("const", -1, le_off))
         elif (info["off_a"][v] == info["off_s"][v] and info["ch_a"][v] == 1
               and info["ch_s"][v] == 1):
-            out.append(("scalar", int(info["off_a"][v]), le_off, res3))
+            out.append(("scalar", int(info["off_a"][v]), le_off))
         else:
-            out.append(("gen", -1, le_off, res3))
+            out.append(("gen", -1, le_off))
     return tuple(out)
 
 
@@ -314,51 +302,12 @@ def _inside_v(media: Media, v: int, p):
     return ins & (media.active[v] > 0)
 
 
-# one-hot-matmul trilinear is used when ry*rz fits this bound (the (B, ry*rz)
-# contraction intermediate stays < ~4.5 GB at 1M-lane batches); bigger grids
-# fall back to 8 per-corner gathers
-ONEHOT_MAX_YZ = 48 * 48
-
-
-def _grid_lookup1(media: Media, v: int, off: int, p, res3=None):
-    """(B,) scalar trilinear lookup of volume v's statically-known grid.
-
-    With a static `res3`, the 8-corner gather is reformulated as separable
-    one-hot contractions riding the MXU: val = wx . (G : wy ⊗ wz), where
-    each w has two nonzeros (the linear weights). The TPU has no fast
-    per-lane gather — an XLA dynamic gather moves ~1 element / 10 cycles,
-    so the 8-corner take path costs 31.5 ms per 0.5M-lane lookup where the
-    matmul form costs 2.3 ms (round-4 microbenchmark, 32^3 grid)."""
+def _grid_lookup1(media: Media, v: int, off: int, p):
+    """(B,) scalar trilinear lookup of volume v's grid at offset `off`: 8
+    corner gathers (on an H100 58x faster than a separable one-hot
+    contraction at HIGHEST precision, PERF.md)."""
     lo = media.box_min[v]
     hi = media.box_max[v]
-    if res3 is not None and res3[1] * res3[2] <= ONEHOT_MAX_YZ:
-        rx, ry, rz = res3
-        rf = jnp.asarray(res3, jnp.float32)
-        q = (p - lo) / jnp.maximum(hi - lo, 1e-9) * (rf - 1)
-        q = jnp.clip(q, 0.0, jnp.maximum(rf - 1, 0.0) * (1 - 1e-6))
-        i0 = jnp.floor(q).astype(jnp.int32)
-        f = q - i0
-
-        def w(axis, n):
-            i0c = i0[..., axis]
-            fc = f[..., axis][..., None]
-            oh0 = jax.nn.one_hot(i0c, n, dtype=jnp.float32)
-            oh1 = jax.nn.one_hot(jnp.minimum(i0c + 1, n - 1), n,
-                                 dtype=jnp.float32)
-            return oh0 * (1 - fc) + oh1 * fc
-
-        G = jax.lax.dynamic_slice(media.grid_data, (off,),
-                                  (rx * ry * rz,)).reshape(rx, ry * rz)
-        # DEFAULT matmul precision, deliberately: HIGHEST measured 2x the
-        # whole volume render and a bf16-split 3-pass variant 5.7x (XLA
-        # stops pattern-matching the one-hot contraction once the operands
-        # are rewritten). Cost of default: operands round to bf16, ~2^-9
-        # relative interpolation error on a smooth density field —
-        # quality-neutral for rendering; gradient gates run on CPU where
-        # matmuls are exact f32.
-        t1 = (w(0, rx) @ G).reshape(p.shape[:-1] + (ry, rz))
-        t2 = jnp.einsum("...j,...jk->...k", w(1, ry), t1)
-        return jnp.einsum("...k,...k->...", w(2, rz), t2)
     r = media.res[v]
     rf = r.astype(jnp.float32)
     q = (p - lo) / jnp.maximum(hi - lo, 1e-9) * (rf - 1)
@@ -404,7 +353,7 @@ def _sigma_pair_v(media: Media, v: int, p, mode):
         s_t = jnp.where(ins, base_t, 0.0) + zero3
         return s_s, s_t
     if kind == "scalar":
-        D = _grid_lookup1(media, v, mode[1], p, mode[3])[..., None]
+        D = _grid_lookup1(media, v, mode[1], p)[..., None]
         s_s = jnp.where(ins, base_s * D, 0.0)
         s_t = jnp.where(ins, base_t * D, 0.0)
         return s_s, s_t
@@ -461,12 +410,10 @@ def le_at(media: Media, vid, p):
 def tau_segment(media: Media, vid, o, d, t0, t1):
     """Per-channel optical depth along [t0, t1] — closed form for homogeneous,
     fixed-step midpoint quadrature for grids (reference VolumeRegion::tau;
-    TPU: static step count, differentiable).
+    here a static step count, differentiable).
 
     The quadrature is a lax.scan over steps so every grid lookup stays at
-    (B, 3) — a batched (B, STEPS, 3) gather would be laid out with the
-    3-channel axis padded to a 128-lane tile on TPU (42x HBM blow-up at
-    bench batch sizes)."""
+    (B, 3) instead of materializing a (B, STEPS, 3) batch."""
     seg = jnp.maximum(t1 - t0, 0.0)
     st = media.sigma_a[vid] + media.sigma_s[vid]
     tau_h = st * seg[..., None]
@@ -532,12 +479,11 @@ def transmittance(media: Media, o, d, t_min, t_max, modes=None):
             # step instead of 48)
             dt = seg / TAU_STEPS
             off = modes[v][1]
-            res3 = modes[v][3]
 
             def step(acc, i):
                 t = near + (i + 0.5) * dt
                 pt = o + d * t[..., None]
-                return acc + _grid_lookup1(media, v, off, pt, res3), None
+                return acc + _grid_lookup1(media, v, off, pt), None
 
             acc, _ = jax.lax.scan(
                 step, jnp.zeros(seg.shape, jnp.float32),
@@ -650,22 +596,7 @@ def sample_distance(media: Media, o, d, t_min, t_max, sampler: Sampler,
             steps=c.steps + 1,
         )
 
-    # CT_TRACK_SCAN=N: run the tracking loop as a fixed-trip lax.scan instead
-    # of lax.while_loop. Workaround for an XLA:TPU runtime fault (round-4
-    # bisection): volpath programs composing this while_loop with the bounce
-    # scan at depth >= 4 crash the TPU worker; the identical body under a
-    # fixed-trip scan executes fine. Exhausted lanes (P ~ Poisson tail,
-    # ~1e-12 at N=64 for bench majorants) are weighted as pass-through.
-    # (Read once at import — see _TRACK_SCAN below; changing the env var
-    # after the first compile requires a process restart.)
-    _scan_n = _TRACK_SCAN
-    if _scan_n > 0:
-        # track() is already idempotent for terminated lanes (every update is
-        # masked by c.tracking), so the fixed-trip scan runs the same body
-        fin, _ = jax.lax.scan(lambda c, _: (track(c), None), init, None,
-                              length=_scan_n)
-    else:
-        fin = jax.lax.while_loop(track_cond, track, init)
+    fin = jax.lax.while_loop(track_cond, track, init)
     sampler = fin.smp
 
     scatter = in_vol & fin.real

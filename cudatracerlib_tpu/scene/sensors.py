@@ -167,7 +167,7 @@ def pixel_spread(cam: Camera, width: int, height: int):
     """Per-pixel ray-cone parameters (r0, slope): the world-space footprint
     radius of one pixel at distance t is ~ r0 + slope * t.
 
-    TPU-native replacement for the reference's per-ray differential
+    Replacement for the reference's per-ray differential
     generation (Sensor.h:217 sampleRayDifferential): a scalar cone is carried
     per path instead of two differential rays, which is what drives MIP LOD
     selection (MIPMap Sample(uv, width)).

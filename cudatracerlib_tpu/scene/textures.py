@@ -6,7 +6,7 @@ WireframeTexture:209) and the MIPMap sampler (``Engine/MIPMap_device.h``:
 wrap modes :10-17, filter modes :19-25, ``Sample(uv, width)`` trilinear and
 ``eval(uv, d0, d1)`` EWA).
 
-TPU design: all textures of a scene live in one SoA table indexed by texture
+Design: all textures of a scene live in one SoA table indexed by texture
 id; image data lives in a fixed-size *mip pyramid atlas* — every layer is
 resampled to ATLAS_RES² at load, downsampled to a full pyramid, and the
 pyramid levels are flattened into one (L, TOTAL, 3) array so any
@@ -147,7 +147,7 @@ def _fetch_texels(atlas, layer, level, xi, yi):
     """Fetch texels at integer coords of a dynamic mip level.
 
     addr = level_offset + y * res + x in the flattened pyramid; moved as
-    per-component scalar takes (minor-axis gathers are slow on TPU).
+    per-component scalar takes.
     """
     offs = jnp.asarray(_LEVEL_OFFSETS)
     res = jnp.int32(ATLAS_RES) >> level
@@ -209,7 +209,7 @@ def sample_trilinear(atlas, layer, uv, lod, wrap):
 def sample_aniso(atlas, layer, uv, duv0, duv1, wrap,
                  n_probes: int = N_ANISO_PROBES, max_aniso: float = 8.0):
     """Anisotropic filtering: N trilinear probes along the major footprint
-    axis at the minor axis' LOD — the fixed-trip-count TPU replacement for
+    axis at the minor axis' LOD — the fixed-trip-count replacement for
     the reference's EWA loop (``KernelMIPMap::eval``/``evalEWA``)."""
     l0 = jnp.sqrt(jnp.sum(duv0 * duv0, -1) + 1e-20)
     l1 = jnp.sqrt(jnp.sum(duv1 * duv1, -1) + 1e-20)

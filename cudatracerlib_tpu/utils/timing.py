@@ -2,8 +2,9 @@
 
 Counterpart of reference ``Base/Timer.h`` (InstructionTimer, PerformanceTimer
 with RAII BlockMeasure and avg/stddev stats :36-127) and the per-pass
-CUDA-event timing in Tracer<>::DoPass (Kernel/Tracer.h:213,239-247). On TPU,
-accurate device timing requires block_until_ready around the timed region.
+CUDA-event timing in Tracer<>::DoPass (Kernel/Tracer.h:213,239-247). JAX
+dispatches asynchronously, so accurate device timing requires
+block_until_ready around the timed region.
 """
 from __future__ import annotations
 

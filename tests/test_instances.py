@@ -1,4 +1,4 @@
-"""Instance-level TLAS tests (scene/instances.py, VERDICT r3 missing #1).
+"""Instance-level TLAS tests (scene/instances.py).
 
 Reference parity: Engine/SceneBVH_device.h:9-16 (per-node transform +
 inverse arrays), BVHRebuilder.h:30-82 (incremental update),

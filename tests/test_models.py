@@ -1,7 +1,7 @@
 """Parametric model tests: GMM EM recovery, sampling consistency, histograms.
 
 Reference Kernel/ParametricModels/ has no tests; these validate the batched
-TPU translation against synthetic ground truth.
+translation against synthetic ground truth.
 """
 import jax
 import jax.numpy as jnp

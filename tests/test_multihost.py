@@ -1,7 +1,7 @@
 """Multi-HOST (multi-process) execution tests.
 
 Spawns real separate JAX runtimes wired together with jax.distributed + Gloo
-CPU collectives (the code path a TPU pod uses, minus physical ICI/DCN) and
+CPU collectives (the multi-host code path, minus the physical interconnect) and
 asserts the sharded render and the gradient-all-reduced train step produce
 the same numbers as single-process execution over an equal global mesh.
 

@@ -97,7 +97,7 @@ class TestCornell:
 
 
 class TestGradients:
-    """The BASELINE pixel-gradient-allclose gate (BASELINE.md)."""
+    """The BASELINE pixel-gradient-allclose gate (BASELINE.json)."""
 
     def _fd_ad(self, scene, wrt, set_fn, h, idx):
         cfg = PTConfig(max_depth=4, rr_start=99)

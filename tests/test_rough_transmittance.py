@@ -93,8 +93,8 @@ class TestRoughTransmittance:
         """generate_fits() reproduces the baked FIT (the tables are derived
         data, not hand numbers). The comparison is in VALUE space — the
         polynomial basis is ill-conditioned, so backend fp differences
-        (constants were generated on TPU) swing raw coefficients while the
-        fitted surface stays put. Subprocess-isolated: the quadrature
+        (the constants were generated on another backend) swing raw
+        coefficients while the fitted surface stays put. Subprocess-isolated: the quadrature
         builds ~50M-lane programs."""
         from cudatracerlib_tpu.math import rough_transmittance as rt
 

@@ -141,7 +141,7 @@ class TestSpectralRender:
     def test_spectral_vol_furnace_matches_rgb(self):
         """A GRAY homogeneous medium: the spectral volumetric tracer must
         reproduce the RGB volpath (sigma uplift + hero sampling calibration
-        — the spectral-media furnace gate, VERDICT r4 item 7).
+        — the spectral-media furnace gate).
 
         subproc-isolated: spectral-vol programs segfault the accumulated
         in-suite XLA:CPU compiler state (round-4 failure class)."""
