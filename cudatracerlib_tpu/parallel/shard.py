@@ -43,6 +43,20 @@ def make_mesh(n_dp: int | None = None, n_sp: int = 1,
     return Mesh(devs, ("dp", "sp"))
 
 
+def _local_ids(n_px: int, spp: int, n_dp: int, n_sp: int):
+    """(pixel_id, sample_idx) of this device's rays, inside shard_map: pixels
+    split over `dp`, samples over `sp`, sample-major within the device.
+    Derived from the axis indices, so no index array is baked into the
+    program as a constant (XLA would constant-fold the film scatter over it
+    at every compile)."""
+    n_loc_px = n_px // n_dp
+    n_loc_s = spp // n_sp
+    j = jnp.arange(n_loc_s * n_loc_px, dtype=jnp.uint32)
+    dp = jax.lax.axis_index("dp").astype(jnp.uint32)
+    sp = jax.lax.axis_index("sp").astype(jnp.uint32)
+    return dp * n_loc_px + j % n_loc_px, sp * n_loc_s + j // n_loc_px
+
+
 def _render_shard(scene: Scene, pixel_id, sample_idx, seed, width, height, config):
     """Per-device ray batch -> local film contribution (runs inside shard_map)."""
     sampler = Sampler.create(seed, pixel_id, sample_idx)
@@ -70,8 +84,8 @@ def _render_shard(scene: Scene, pixel_id, sample_idx, seed, width, height, confi
 def make_sharded_render(mesh: Mesh, width: int, height: int, spp: int,
                         config: PTConfig = PTConfig(),
                         with_stats: bool = False):
-    """Build a jitted multi-chip render fn(scene, seed) -> (H, W, 3) image
-    (with_stats=True: -> (image, rays actually traced, summed over chips)).
+    """Build a jitted multi-device render fn(scene, seed) -> (H, W, 3) image
+    (with_stats=True: -> (image, rays actually traced, summed over devices)).
 
     Pixels shard over `dp`, spp replicas over `sp`; the scene pytree is
     replicated (in_specs P())."""
@@ -81,24 +95,12 @@ def make_sharded_render(mesh: Mesh, width: int, height: int, spp: int,
     assert n_px % n_dp == 0, "pixel count must divide dp axis"
     assert spp % n_sp == 0, "spp must divide sp axis"
 
-    pixel_id = jnp.tile(jnp.arange(n_px, dtype=jnp.uint32), spp)
-    sample_idx = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), n_px)
-    # layout (sp, dp, B_local): sp-major so each sp shard holds full images
-    pixel_id = pixel_id.reshape(n_sp, spp // n_sp, n_dp, n_px // n_dp)
-    sample_idx = sample_idx.reshape(n_sp, spp // n_sp, n_dp, n_px // n_dp)
-
     shard_fn = jax.shard_map(
-        lambda scene, pid, sid, seed: _render_shard(
-            scene,
-            pid.reshape(-1),
-            sid.reshape(-1),
-            seed,
-            width,
-            height,
-            config,
-        ),
+        lambda scene, seed: _render_shard(
+            scene, *_local_ids(n_px, spp, n_dp, n_sp), seed, width, height,
+            config),
         mesh=mesh,
-        in_specs=(P(), P("sp", None, "dp", None), P("sp", None, "dp", None), P()),
+        in_specs=(P(), P()),
         out_specs=(P(), P(), P()),
         # traversal/scan carries mix replicated scene state with sharded rays;
         # skip the varying-manual-axes check rather than pcast every carry leaf
@@ -107,7 +109,7 @@ def make_sharded_render(mesh: Mesh, width: int, height: int, spp: int,
 
     @jax.jit
     def render_fn(scene: Scene, seed):
-        rgb, weight, n_rays = shard_fn(scene, pixel_id, sample_idx, seed)
+        rgb, weight, n_rays = shard_fn(scene, seed)
         img = rgb / jnp.maximum(weight, 1e-8)[..., None]
         if with_stats:
             return img, n_rays
@@ -171,13 +173,8 @@ def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
     n_px = width * height
     assert n_px % n_dp == 0 and spp % max(n_sp, 1) == 0
 
-    pixel_id = jnp.tile(jnp.arange(n_px, dtype=jnp.uint32), spp)
-    sample_idx = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), n_px)
-    pixel_id = pixel_id.reshape(n_sp, spp // n_sp, n_dp, n_px // n_dp)
-    sample_idx = sample_idx.reshape(n_sp, spp // n_sp, n_dp, n_px // n_dp)
-
     def _build(cfg: "ppm_mod.PPMConfig"):
-        def _shard(scene: Scene, pid, sid, seed, radius):
+        def _shard(scene: Scene, seed, radius):
             cfg_local = cfg._replace(n_photons=cfg.n_photons // n_dev)
             dev = jax.lax.axis_index("dp") * n_sp + jax.lax.axis_index("sp")
             pm_local = ppm_mod.trace_photons(
@@ -185,7 +182,7 @@ def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
                 seed ^ (dev.astype(jnp.uint32) * jnp.uint32(0x9E3779B9)),
                 cfg_local.base,
             )
-            # photon exchange: the union map is replicated on every chip
+            # photon exchange: the union map is replicated on every device
             pm = jax.tree.map(
                 lambda x: jax.lax.all_gather(
                     jax.lax.all_gather(x, "sp", axis=0, tiled=True),
@@ -196,9 +193,9 @@ def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
             # count; rescale to the global photon count
             pm = pm._replace(power=pm.power / n_dev)
             grids = ppm_mod.build_photon_grids(scene, pm, cfg)
+            pid, sid = _local_ids(n_px, spp, n_dp, n_sp)
             film = ppm_mod.ppm_eye_pass(
-                scene, pm, grids, pid.reshape(-1), sid.reshape(-1), seed,
-                radius, width, height, cfg,
+                scene, pm, grids, pid, sid, seed, radius, width, height, cfg,
             )
             rgb = jax.lax.psum(jax.lax.psum(film.rgb, "dp"), "sp")
             weight = jax.lax.psum(jax.lax.psum(film.weight, "dp"), "sp")
@@ -207,15 +204,14 @@ def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
         shard_fn = jax.shard_map(
             _shard,
             mesh=mesh,
-            in_specs=(P(), P("sp", None, "dp", None),
-                      P("sp", None, "dp", None), P(), P()),
+            in_specs=(P(), P(), P()),
             out_specs=(P(), P()),
             check_vma=False,
         )
 
         @jax.jit
         def run(scene: Scene, seed, radius):
-            rgb, weight = shard_fn(scene, pixel_id, sample_idx, seed, radius)
+            rgb, weight = shard_fn(scene, seed, radius)
             return rgb / jnp.maximum(weight, 1e-8)[..., None]
 
         return run
@@ -224,14 +220,20 @@ def make_sharded_ppm(mesh: Mesh, width: int, height: int, spp: int,
     # bsdf_types=None every BSDF family would be evaluated on every lane)
     cache: dict = {}
 
-    def ppm_fn(scene: Scene, seed, radius):
+    def _jitted(scene: Scene):
         from ..render.path_tracer import specialize_config
 
         base = specialize_config(scene, config.base)
         if base not in cache:
             cache[base] = _build(config._replace(base=base))
-        return cache[base](scene, seed, radius)
+        return cache[base]
 
+    def ppm_fn(scene: Scene, seed, radius):
+        return _jitted(scene)(scene, seed, radius)
+
+    # ahead-of-time lowering, as on a jitted function
+    ppm_fn.lower = lambda scene, seed, radius: _jitted(scene).lower(
+        scene, seed, radius)
     return ppm_fn
 
 

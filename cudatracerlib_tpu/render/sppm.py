@@ -746,7 +746,8 @@ def _finish_beam_wrapper(media, vgrid, vpm, o, d, t_end, vol_r, max_gather, n_st
     ph_wi = vpm.wi[idx]
     ok = vmask & vpm.valid[idx]
     rel = ph_p - o[:, None, None, :]
-    t_proj = jnp.einsum("bskc,bc->bsk", rel, d)
+    t_proj = jnp.einsum("bskc,bc->bsk", rel, d,
+                        precision=jax.lax.Precision.HIGHEST)
     d2 = jnp.maximum(jnp.sum(rel * rel, axis=-1) - t_proj * t_proj, 0.0)
     cell_lo = t_mid[..., None] - 0.5 * dt[:, None, None]
     cell_hi = t_mid[..., None] + 0.5 * dt[:, None, None]

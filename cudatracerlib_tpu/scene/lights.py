@@ -387,11 +387,11 @@ def _sample_env(lights: Lights, lid, u2):
     H, W = lights.env_w.shape[0], lights.env_w.shape[1]
     y, pmf_row, uy = mc.sample_discrete(lights.env_row_cdf, u2[..., 1])
     oh_y = jax.nn.one_hot(y, H, dtype=jnp.float32)          # (B, H)
-    # HIGHEST precision: the default bf16 matmul rounds the CDF row to 8
-    # mantissa bits, and pdf_env_dir computes the MIS counter-density from
-    # the EXACT env_w table — a mismatched pair biases BSDF-vs-NEE MIS
-    # weights on wide maps (round-4 advisor). Per-NEE-sample work, not
-    # per-texel, so the 6-pass f32 contraction is noise in the profile.
+    # HIGHEST precision makes the one-hot product exact: at DEFAULT a GPU
+    # contracts f32 in TF32, which rounds the CDF row to 10 mantissa bits,
+    # while pdf_env_dir computes the MIS counter-density from the exact
+    # env_w table — a mismatched pair biases BSDF-vs-NEE MIS weights on
+    # wide maps.
     row_cdf = jnp.matmul(oh_y, lights.env_col_cdf,
                          precision=jax.lax.Precision.HIGHEST)  # (B, W)
     u0 = u2[..., 0]

@@ -69,6 +69,51 @@ class TestMaterialLib:
         assert ss.shape == (3,) and eta == 1.5
 
 
+class TestEnvSampling:
+    """Importance sampling of an environment map (lights._sample_env)."""
+
+    @staticmethod
+    def _env_light(h, w, seed):
+        rng = np.random.default_rng(seed)
+        env = rng.uniform(0.05, 1.0, (h, w, 3)).astype(np.float32)
+        env[h // 3, w // 4] = 40.0  # a sun-like hot texel
+        return L.build_lights([{"type": L.INFINITE, "radiance": [1, 1, 1]}],
+                              [0, 0, 0], 1.0, env_map=env)
+
+    @pytest.mark.parametrize("h,w", [(8, 16), (32, 64)])
+    def test_pdf_matches_pdf_env_dir(self, h, w):
+        """The sampled pdf is the density pdf_env_dir (MIS's counterpart)
+        gives the sampled direction."""
+        lights = self._env_light(h, w, seed=h)
+        n = 4096
+        u2 = jnp.asarray(np.random.default_rng(1).uniform(size=(n, 2)),
+                         jnp.float32)
+        lid = jnp.zeros(n, jnp.int32)
+        d, pdf, rad = L._sample_env(lights, lid, u2)
+        ref = np.asarray(L.pdf_env_dir(lights, lid, d))
+        close = np.isclose(np.asarray(pdf), ref, rtol=1e-3)
+        assert close.mean() >= 0.99, close.mean()
+        assert np.isfinite(np.asarray(rad)).all()
+
+    def test_hot_texel_frequency(self):
+        """Texels are drawn in proportion to their weight env_w."""
+        h, w = 8, 16
+        lights = self._env_light(h, w, seed=3)
+        n = 1 << 15
+        u2 = jnp.asarray(np.random.default_rng(2).uniform(size=(n, 2)),
+                         jnp.float32)
+        d, _, _ = L._sample_env(lights, jnp.zeros(n, jnp.int32), u2)
+        d = np.asarray(d)
+        theta = np.arccos(np.clip(d[:, 2], -1, 1))
+        phi = np.mod(np.arctan2(d[:, 1], d[:, 0]), 2 * np.pi)
+        y = np.clip((theta / np.pi * h).astype(int), 0, h - 1)
+        x = np.clip((phi / (2 * np.pi) * w).astype(int), 0, w - 1)
+        env_w = np.asarray(lights.env_w)
+        p_hot = env_w[h // 3, w // 4] / env_w.sum()
+        got = np.mean((y == h // 3) & (x == w // 4))
+        assert abs(got - p_hot) < 4 * np.sqrt(p_hot * (1 - p_hot) / n)
+
+
 class TestDispersion:
     def test_cauchy_monotonic(self):
         n = np.asarray(dispersion.rgb_ior_cauchy("bk7"))

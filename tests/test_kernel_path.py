@@ -4,9 +4,11 @@ The kernel itself (ops/bvh_trace.cu) runs only on a GPU (tests/test_gpu.py).
 Everything around it is plain JAX and is checked here: the XLA oracle it is
 compared with, the one backend decision, the wrapper's ray packing, padding,
 un-padding and Hit decoding (with the oracle standing in for the FFI call),
-the BVH depth bound, the compile-cache placement, and that no TPU-only code
-is left.
+the BVH depth bound, the compile-cache placement, that no Pallas kernel or
+platform-name test is left, and that every f32 contraction states its
+precision.
 """
+import ast
 import os
 import pathlib
 import re
@@ -87,7 +89,7 @@ def test_oracle_matches_brute_force(scene_bvh, mode):
         assert (np.asarray(hit.t)[np.asarray(hit.valid)] <= 1.5).all()
 
 
-@pytest.mark.parametrize("platform", ["cpu", "cuda", "tpu"])
+@pytest.mark.parametrize("platform", ["cpu", "cuda", "rocm"])
 def test_backend_decision(scene_bvh, platform):
     """intersect_auto lowers to the XLA oracle for the CPU, to the CUDA FFI
     kernel for a GPU, and fails for any other platform."""
@@ -95,7 +97,7 @@ def test_backend_decision(scene_bvh, platform):
     o, d = _rays(tris, 64)
     traced = jax.jit(lambda o, d: traversal.intersect_auto(bvh, o, d)).trace(
         o, d)
-    if platform == "tpu":
+    if platform == "rocm":
         with pytest.raises(Exception, match="platform"):
             traced.lower(lowering_platforms=(platform,))
         return
@@ -145,6 +147,24 @@ def test_pack_rays_layout_and_inert_padding(scene_bvh):
     assert not np.asarray(pad.valid)[2:].any()
 
 
+@pytest.mark.parametrize("shape", [(37, 5), (37, 3, 3)])
+def test_gather_rows_matches_take_value_and_grad(shape):
+    """The shading gathers that replaced the packed table: per-column takes
+    equal a row take, in value and in gradient w.r.t. the table."""
+    from cudatracerlib_tpu.scene.scene import gather_rows
+
+    rng = np.random.default_rng(0)
+    table = jnp.asarray(rng.normal(size=shape), jnp.float32)
+    idx = jnp.asarray(rng.integers(0, shape[0], 300), jnp.int32)
+    w = jnp.asarray(rng.normal(size=(300,) + shape[1:]), jnp.float32)
+    np.testing.assert_array_equal(np.asarray(gather_rows(table, idx)),
+                                  np.asarray(table[idx]))
+    g = jax.grad(lambda t: jnp.sum(gather_rows(t, idx) * w))(table)
+    g_ref = jax.grad(lambda t: jnp.sum(t[idx] * w))(table)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-6,
+                               atol=1e-6)
+
+
 def test_ensure_registered_is_a_noop_without_cuda():
     bvh_trace.ensure_registered()
     assert not bvh_trace._REGISTERED
@@ -186,8 +206,8 @@ def _sources():
         yield p, p.read_text()
 
 
-def test_no_module_imports_pallas_tpu():
-    pat = re.compile(r"pallas[ .]+(import\s+)?tpu|pallas\.tpu")
+def test_no_module_imports_pallas():
+    pat = re.compile(r"experimental[ .]+(import\s+)?pallas")
     bad = [str(p) for p, text in _sources() if pat.search(text)]
     assert not bad, bad
 
@@ -201,4 +221,33 @@ def test_no_platform_string_tests_or_fault_knobs():
         if re.search(r"platform (not )?in \(\"cpu\",?\)|platform != \"cpu\"",
                      text) or re.search(r"environ\.get\(\"CT_", text):
             bad.append(str(p))
+    assert not bad, bad
+
+
+_CONTRACTIONS = {"einsum", "matmul", "dot", "tensordot", "dot_general",
+                 "inner", "vdot", "outer", "batch_matmul"}
+
+
+def _contraction_calls(tree):
+    """Calls jnp./jax.numpy./lax./jax.lax.<contraction>(...) in a module."""
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in _CONTRACTIONS):
+            continue
+        owner = ast.unparse(node.func.value)
+        if owner in ("jnp", "jax.numpy", "lax", "jax.lax"):
+            yield node
+
+
+def test_every_contraction_states_its_precision():
+    """A GPU runs an f32 contraction at DEFAULT precision in TF32, so every
+    jnp/lax contraction in the package names its precision."""
+    bad, seen = [], 0
+    for p in PKG.rglob("*.py"):
+        for node in _contraction_calls(ast.parse(p.read_text())):
+            seen += 1
+            if not any(k.arg == "precision" for k in node.keywords):
+                bad.append(f"{p.relative_to(REPO)}:{node.lineno}")
+    assert seen > 10, seen  # the scan finds the package's contractions
     assert not bad, bad
